@@ -1,0 +1,185 @@
+"""Batch-composition policies.
+
+* :class:`SarathiScheduler` — the paper's contribution: each iteration is a
+  decode-maximal hybrid batch (ONE prefill chunk + up to D piggybacked
+  decodes).
+* :class:`OrcaScheduler` — iteration-level scheduling à la Orca [48]: whole
+  prompts enter as a single prefill; decodes of running requests share the
+  batch (the paper's "best-case Orca", §5.2).
+* :class:`RequestLevelScheduler` — FasterTransformer-style: a batch of
+  requests is admitted together, prefilled, decoded to completion, and only
+  then replaced (the paper's baseline).
+
+All policies emit :class:`repro_torch.core.engine.IterationPlan`s and are
+driven by ``repro_torch.serving.server.Server`` against the real engine.
+(The token-budget ``sarathi_serve`` policy of the JAX package is not
+ported yet: ROADMAP Queue 1.)
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Deque, Dict, List, Optional
+
+from repro_torch.core.engine import ChunkWork, DecodeWork, IterationPlan
+from repro_torch.scheduler.request import Request, State
+
+
+class Scheduler:
+    """Base: FCFS admission into a fixed number of engine slots.
+
+    ``block_manager`` (optional, shared with a paged engine) makes the
+    scheduler release a finished request's KV blocks on retirement."""
+
+    def __init__(self, *, n_slots: int, max_decodes: int, chunk_size: int,
+                 block_manager=None):
+        self.n_slots = n_slots
+        self.max_decodes = max_decodes
+        self.chunk_size = chunk_size
+        self.block_manager = block_manager
+        self.prefix_cache = None    # set by prefix-aware policies
+        self.waiting: Deque[Request] = deque()
+        self.running: List[Request] = []
+        self.rejected: List[Request] = []   # unservable at pool geometry
+        self.iteration = 0
+        self.n_preemptions = 0
+
+    # ------------------------------------------------------------- intake
+    def submit(self, req: Request):
+        self.waiting.append(req)
+
+    def _admit(self, admit_hook=None):
+        while self.waiting and len(self.running) < self.n_slots:
+            req = self.waiting.popleft()
+            req.state = State.PREFILLING
+            self.running.append(req)
+            if admit_hook:
+                admit_hook(req)
+
+    # ------------------------------------------------------------ results
+    def on_tokens(self, tokens: Dict[int, int], release_hook=None):
+        """Feed sampled tokens back; retire finished requests."""
+        by_id = {r.req_id: r for r in self.running}
+        for rid, tok in tokens.items():
+            req = by_id[rid]
+            if req.state == State.PREFILLING and req.prefill_remaining == 0:
+                req.state = State.DECODING
+            req.record_token(tok, self.iteration)
+        finished = [r for r in self.running if r.done]
+        for r in finished:
+            self.running.remove(r)
+            self._on_finish(r)
+            if self.block_manager is not None:
+                self.block_manager.free(r.req_id)
+            if release_hook:
+                release_hook(r)
+
+    def _on_finish(self, req: Request):
+        """Hook before a finished request's blocks are freed (prefix-aware
+        policies commit its written prefix to the cache here)."""
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def _take_chunk(self, req: Request, n: int) -> ChunkWork:
+        """Cut the next ``n``-token prefill chunk off ``req`` and advance
+        its lifecycle (prefilled counter, PREFILLING -> DECODING on the
+        last chunk).  ``prefill_tokens`` is the prompt, plus — after a
+        preemption — the generated tokens being recomputed."""
+        toks = list(req.prefill_tokens[req.prefilled: req.prefilled + n])
+        chunk = ChunkWork(req.req_id, toks, req.prefilled,
+                          is_last=(n == req.prefill_remaining))
+        req.prefilled += n
+        if req.prefill_remaining == 0:
+            req.state = State.DECODING
+        return chunk
+
+    # ------------------------------------------------------------- policy
+    def next_plan(self, admit_hook=None) -> Optional[IterationPlan]:
+        raise NotImplementedError
+
+
+class SarathiScheduler(Scheduler):
+    """Decode-maximal batching with chunked prefills (paper §4.3)."""
+
+    def next_plan(self, admit_hook=None) -> Optional[IterationPlan]:
+        self._admit(admit_hook)
+        if not self.running:
+            return None
+        self.iteration += 1
+        plan = IterationPlan()
+        # decodes first: every running decode-phase request piggybacks
+        decoding = [r for r in self.running if r.state == State.DECODING]
+        for r in decoding[: self.max_decodes]:
+            plan.decodes.append(DecodeWork(r.req_id, r.last_token,
+                                           r.decode_position))
+        # exactly one prefill chunk
+        prefilling = [r for r in self.running if r.state == State.PREFILLING
+                      and r.prefill_remaining > 0]
+        if prefilling:
+            r = prefilling[0]
+            plan.chunk = self._take_chunk(
+                r, min(self.chunk_size, r.prefill_remaining))
+        if plan.chunk is None and not plan.decodes:
+            return None
+        return plan
+
+
+class OrcaScheduler(Scheduler):
+    """Iteration-level scheduling with whole-prompt prefills (best-case
+    Orca): at most one NEW request's full prefill joins the running
+    decodes each iteration."""
+
+    def next_plan(self, admit_hook=None) -> Optional[IterationPlan]:
+        self._admit(admit_hook)
+        if not self.running:
+            return None
+        self.iteration += 1
+        plan = IterationPlan()
+        decoding = [r for r in self.running if r.state == State.DECODING]
+        for r in decoding[: self.max_decodes]:
+            plan.decodes.append(DecodeWork(r.req_id, r.last_token,
+                                           r.decode_position))
+        prefilling = [r for r in self.running if r.state == State.PREFILLING
+                      and r.prefill_remaining > 0]
+        if prefilling:
+            r = prefilling[0]
+            plan.chunk = self._take_chunk(r, r.prefill_remaining)  # ENTIRE prompt
+        if plan.chunk is None and not plan.decodes:
+            return None
+        return plan
+
+
+class RequestLevelScheduler(Scheduler):
+    """FasterTransformer-style request-level batching: admit a batch, run it
+    to completion (prefills first, then decode-only iterations), then admit
+    the next batch."""
+
+    def next_plan(self, admit_hook=None) -> Optional[IterationPlan]:
+        if not self.running:
+            self._admit(admit_hook)          # admit a fresh batch only when idle
+        if not self.running:
+            return None
+        self.iteration += 1
+        plan = IterationPlan()
+        prefilling = [r for r in self.running if r.state == State.PREFILLING
+                      and r.prefill_remaining > 0]
+        if prefilling:                        # prefill phase: one at a time
+            plan.chunk = self._take_chunk(prefilling[0],
+                                          prefilling[0].prefill_remaining)
+            return plan
+        for r in self.running[: self.max_decodes]:
+            plan.decodes.append(DecodeWork(r.req_id, r.last_token,
+                                           r.decode_position))
+        return plan if plan.decodes else None
+
+
+POLICIES = {
+    "sarathi": SarathiScheduler,
+    "orca": OrcaScheduler,
+    "request_level": RequestLevelScheduler,
+}
+
+# policies whose engine compiles with C = chunk_size (the others submit
+# whole prompts as one chunk)
+CHUNKED_POLICIES = frozenset({"sarathi"})

@@ -1,0 +1,128 @@
+"""Request lifecycle for the serving engine."""
+from __future__ import annotations
+
+import enum
+import itertools
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
+
+
+class State(enum.Enum):
+    QUEUED = "queued"
+    PREFILLING = "prefilling"
+    DECODING = "decoding"
+    FINISHED = "finished"
+
+
+_ids = itertools.count()
+
+
+@dataclass
+class Request:
+    prompt: Sequence[int]
+    max_new_tokens: int
+    req_id: int = field(default_factory=lambda: next(_ids))
+    arrival_time: float = 0.0
+    memory: Optional[object] = None          # frontend embeddings (vlm/audio)
+    eos_token: Optional[int] = None
+
+    state: State = State.QUEUED
+    prefilled: int = 0                       # prefill tokens already processed
+    output: List[int] = field(default_factory=list)
+
+    # preemption-by-recompute (paged KV pool pressure, see repro_torch.cache):
+    # after a preemption the request re-prefills prompt + generated-so-far.
+    prefill_tokens: List[int] = field(default=None)  # tokens to prefill
+    n_preemptions: int = 0
+    recompute_tokens: int = 0                # context re-prefilled overall
+
+    # prefix-cache reuse: prompt tokens whose KV came from shared blocks
+    # instead of prefill compute (cumulative across preemption re-hits)
+    cached_tokens: int = 0
+
+    # preemption-by-swap (host KV tier, see repro_torch.cache): the request's
+    # blocks live in the host arena; progress (prefilled/output) is kept,
+    # only the device residency is given up until swap_in.
+    swapped: bool = False
+    resume_state: Optional[State] = None     # state to restore on swap-in
+    n_swap_outs: int = 0
+    n_swap_ins: int = 0
+    swapped_tokens: int = 0                  # context moved to host overall
+
+    # bookkeeping for metrics
+    first_token_iter: Optional[int] = None
+    finish_iter: Optional[int] = None
+
+    def __post_init__(self):
+        if self.prefill_tokens is None:
+            self.prefill_tokens = list(self.prompt)
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.prompt)
+
+    @property
+    def context_len(self) -> int:
+        """Tokens currently in the cache for this request."""
+        outputs_in_prefill = len(self.prefill_tokens) - self.prompt_len
+        return self.prefilled + len(self.output) - outputs_in_prefill
+
+    @property
+    def prefill_remaining(self) -> int:
+        return len(self.prefill_tokens) - self.prefilled
+
+    def preempt(self):
+        """Evict this request for later RECOMPUTE: its cache blocks are
+        gone, so everything known (prompt + generated tokens) re-enters as
+        one prefill.  Under greedy sampling the regenerated KV is exact,
+        so preemption only costs latency (tracked in recompute_tokens)."""
+        self.recompute_tokens += self.context_len
+        self.n_preemptions += 1
+        self.prefill_tokens = list(self.prompt) + list(self.output)
+        self.prefilled = 0
+        self.state = State.QUEUED
+
+    def swap_out(self):
+        """Evict this request by SWAP: the KV bytes move to the host tier
+        intact, so prefill progress survives — unlike :meth:`preempt`,
+        nothing re-enters the prefill queue beyond what was already
+        pending.  Resume (:meth:`swap_in`) restores the exact
+        pre-preemption state, which is why greedy outputs stay
+        bit-identical to the recompute policy."""
+        self.swapped_tokens += self.context_len
+        self.n_swap_outs += 1
+        self.n_preemptions += 1
+        self.swapped = True
+        self.resume_state = self.state
+        self.state = State.QUEUED
+
+    def swap_in(self):
+        """Undo :meth:`swap_out` once the blocks are back on device."""
+        self.n_swap_ins += 1
+        self.swapped = False
+        self.state = self.resume_state
+        self.resume_state = None
+
+    @property
+    def decode_position(self) -> int:
+        """Cache position where the pending token will be written: the last
+        sampled token has not been processed yet, so it sits at
+        context_len - 1."""
+        return self.context_len - 1
+
+    @property
+    def last_token(self) -> int:
+        return self.output[-1] if self.output else self.prompt[-1]
+
+    @property
+    def done(self) -> bool:
+        return self.state == State.FINISHED
+
+    def record_token(self, tok: int, iteration: int):
+        if not self.output:
+            self.first_token_iter = iteration
+        self.output.append(tok)
+        if (len(self.output) >= self.max_new_tokens
+                or (self.eos_token is not None and tok == self.eos_token)):
+            self.state = State.FINISHED
+            self.finish_iter = iteration

@@ -1,0 +1,158 @@
+"""The port's paged attention kernels on the CPU: their plain PyTorch
+versions against the JAX package's Pallas kernels (interpret mode), the
+scratch-block contract, and the launch counts.  The CUDA kernels
+themselves run only on the card (``chip_smoke.py`` holds them against
+these plain versions there)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import (  # noqa: E402
+    paged_chunked_prefill_attention as jax_pcpa,
+    paged_decode_attention as jax_pda)
+from repro_torch.kernels import ops  # noqa: E402
+
+# fp32: same algorithm, different summation order; bf16: one rounding of
+# the PV probabilities and of the output (the JAX suite's own tiers)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+NK, BS = 2, 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny tensors: one intra-op thread is as fast, and keeps the suite's
+    parallel workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(x, dtype):
+    """The same numbers as a JAX array and a CPU torch tensor."""
+    j = jnp.asarray(x, getattr(jnp, dtype))
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(getattr(torch, dtype))
+    return j, t
+
+
+def _pool(rng, n_blocks, hd):
+    return rng.standard_normal((n_blocks, BS, 2 * NK, hd)).astype(np.float32)
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 7])
+def test_paged_decode_plain_matches_pallas(g, hd, dtype):
+    rng = np.random.default_rng(g * 1000 + hd)
+    B, M = 3, 3
+    N = B * M + 1
+    q = rng.standard_normal((B, g * NK, hd)).astype(np.float32)
+    pool = _pool(rng, N, hd)
+    bt = rng.permutation(np.arange(1, N))[:B * M].reshape(B, M) \
+        .astype(np.int32)
+    ctx = np.array([0, 19, M * BS - 1], np.int32)    # first, mid, last
+    (qj, qt), (pj, pt) = _pair(q, dtype), _pair(pool, dtype)
+    want = jax_pda.paged_decode_attention(qj, pj, bt, ctx, interpret=True)
+    got = ops.paged_decode_attention(qt, pt, torch.from_numpy(bt),
+                                     torch.from_numpy(ctx))
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 7])
+def test_paged_chunked_prefill_plain_matches_pallas(g, hd, dtype):
+    rng = np.random.default_rng(g * 1000 + hd + 1)
+    C, M, start = 20, 3, 19             # C off any tile; start mid-block
+    N = M + 3
+    q = rng.standard_normal((C, g * NK, hd)).astype(np.float32)
+    pool = _pool(rng, N, hd)
+    bt = rng.permutation(np.arange(1, N))[:M].astype(np.int32)
+    (qj, qt), (pj, pt) = _pair(q, dtype), _pair(pool, dtype)
+    want = jax_pcpa.paged_chunked_prefill_attention(
+        qj, pj, bt, start, bq=C, interpret=True)
+    got = ops.paged_chunked_prefill_attention(
+        qt, pt, torch.from_numpy(bt), torch.tensor(start, dtype=torch.int32))
+    _close(got, want, dtype)
+
+
+def test_paged_chunked_prefill_rows_past_the_table():
+    """A padded final chunk whose rows run past the table's M * bs keys:
+    those rows see every key (JAX clamps its tail pages), never more."""
+    rng = np.random.default_rng(7)
+    C, M, start, hd = 16, 3, 40, 64     # rows 40..55 > M * bs - 1 = 47
+    q = rng.standard_normal((C, 4 * NK, hd)).astype(np.float32)
+    pool = _pool(rng, M + 2, hd)
+    bt = np.array([3, 1, 4], np.int32)
+    want = jax_pcpa.paged_chunked_prefill_attention(
+        jnp.asarray(q), jnp.asarray(pool), bt, start, bq=C, interpret=True)
+    got = ops.paged_chunked_prefill_attention(
+        torch.from_numpy(q), torch.from_numpy(pool), torch.from_numpy(bt),
+        start)
+    _close(got, want, "float32")
+
+
+def test_plain_versions_ignore_poisoned_scratch_tail():
+    """Table entries past the allocation name scratch block 0; its
+    contents (poisoned here) must never reach the output."""
+    rng = np.random.default_rng(3)
+    B, M, hd = 2, 4, 64
+    N = B * M + 1
+    q = torch.from_numpy(rng.standard_normal((B, 4 * NK, hd))
+                         .astype(np.float32))
+    pool = torch.from_numpy(_pool(rng, N, hd))
+    bt = torch.arange(1, 1 + B * M, dtype=torch.int32).reshape(B, M)
+    ctx = torch.tensor([20, 40], dtype=torch.int32)
+    padded = bt.clone()
+    padded[0, 2:] = 0                   # ctx 20 fits in 2 blocks
+    poisoned = pool.clone()
+    poisoned[0] = 99.0
+    full = ops.paged_decode_attention(q, pool, bt, ctx)
+    torch.testing.assert_close(
+        ops.paged_decode_attention(q, poisoned, padded, ctx), full,
+        rtol=1e-6, atol=1e-6)
+
+    qc = torch.from_numpy(rng.standard_normal((10, 4 * NK, hd))
+                          .astype(np.float32))
+    start = torch.tensor(21, dtype=torch.int32)     # rows 21..30: 2 blocks
+    full = ops.paged_chunked_prefill_attention(qc, pool, bt[1], start)
+    tbl = bt[1].clone()
+    tbl[2:] = 0
+    torch.testing.assert_close(
+        ops.paged_chunked_prefill_attention(qc, poisoned, tbl, start), full,
+        rtol=1e-6, atol=1e-6)
+
+
+def test_cpu_calls_launch_no_kernel():
+    ops.reset_launches()
+    rng = np.random.default_rng(0)
+    pool = torch.from_numpy(_pool(rng, 3, 64))
+    q = torch.zeros((2, 2 * NK, 64))
+    ops.paged_decode_attention(q, pool, torch.ones((2, 2), dtype=torch.int32),
+                               torch.tensor([3, 17], dtype=torch.int32))
+    ops.paged_chunked_prefill_attention(
+        q, pool, torch.tensor([1, 2], dtype=torch.int32), 5)
+    assert ops.launches == {"paged_chunked_prefill_attention": 0,
+                            "paged_decode_attention": 0}
+
+
+def test_non_cpu_tensor_without_kernel_raises():
+    """A tensor that is neither on the CPU nor on a CUDA device has no
+    kernel and no fallback."""
+    q = torch.empty((2, 4, 64), device="meta")
+    pool = torch.empty((3, BS, 4, 64), device="meta")
+    with pytest.raises(ValueError):
+        ops.paged_decode_attention(
+            q, pool, torch.empty((2, 2), dtype=torch.int32, device="meta"),
+            torch.empty((2,), dtype=torch.int32, device="meta"))
+    assert ops.launches["paged_decode_attention"] == 0
