@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100).
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --profile  # phase 4 under torch.profiler only
+    python3 chip_smoke.py --profile  # phases 4 and 6 under torch.profiler only
 
 Phases (each one that fails raises, so the script exits non-zero):
 
@@ -22,12 +22,28 @@ Phases (each one that fails raises, so the script exits non-zero):
 4. full width: paper-llama-13b in bfloat16 with random weights made on the
    card from a seed, behind ``Server(policy="sarathi", paged=True)``,
    serves 6 requests; every logit must be finite, and the kernels' launch
-   counts over ``run()`` must equal 40 layers x the steps that need them.
+   counts over ``run()`` must equal 40 layers x the steps that need them;
+5. dense-row kernels at their own entry points (no serving path calls
+   them, as in the JAX package): the chunked-prefill (K1) and decode (K2)
+   CUDA kernels against their plain versions at every shape of
+   ``tests/test_kernels.py`` (head dims 64-256, groups 1-16) in float32
+   (2e-5, TF32 off) and bfloat16 (2e-2), each also with a stale tail
+   poisoned with +-99 past every row's visible keys, and at the
+   paper-llama-13b width (bf16, K1: C = 256 at start 768 in a row of
+   2048; K2: 4 rows of 2048), timed beside their plain versions, their
+   bounds and one ``scaled_dot_product_attention`` call each;
+6. ``forward_batched`` at full width: phase 4's weights, 4 prompts of 1024
+   tokens, a batched prefill and 16 batched greedy decode steps on
+   4 x 2048 cache rows, timed with CUDA events; every logit finite;
+7. the paper's Fig. 6 claim: paper-llama-13b cut to 4 layers, float32,
+   TF32 off: the last logits of a prefill in chunks of 384, 256 and 384
+   equal the full prefill's within rtol = atol = 5e-4.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 program beside it, the script exits non-zero and prints no result.
 """
+import gc
 import json
 import statistics
 import subprocess
@@ -40,11 +56,20 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core rate
             "float32": 67e12}      # outside the tensor cores (TF32 off)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = {
+    "paged_chunked_prefill_attention": CSRC + "paged_attention.cu",
+    "paged_decode_attention": CSRC + "paged_attention.cu",
+    "chunked_prefill_attention": CSRC + "dense_attention.cu",
+    "decode_attention": CSRC + "dense_attention.cu",
+}
 REPLACES = {
     "paged_chunked_prefill_attention":
         "src/repro/kernels/paged_chunked_prefill_attention.py:88",
     "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:95",
+    "chunked_prefill_attention":
+        "src/repro/kernels/chunked_prefill_attention.py:57",
+    "decode_attention": "src/repro/kernels/decode_attention.py:49",
 }
 # main-path geometry (phase 4): Server(chunk_size=256, n_slots=8,
 # max_len=2048, block_size=16) -> C = 256, D = 7, M = 128, 1025 blocks
@@ -301,19 +326,13 @@ def full_width(profile=False):
                     max_new_tokens=32) for n in lens]
     ops.reset_launches()
     it0 = eng.iterations
-    prof = None
-    if profile:
-        from torch.profiler import ProfilerActivity
-        prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA])
-        prof.__enter__()
     t = time.perf_counter()
-    res = srv.run(reqs)
+    if profile:
+        res = profiled(lambda: srv.run(reqs))
+    else:
+        res = srv.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    if prof is not None:
-        prof.__exit__(None, None, None)
-        report_profile(prof, wall, eng.iterations - it0)
     launches = dict(ops.launches)
     packed = eng.iterations - it0
     with_chunk = sum(1 for c, _ in steps if c)
@@ -325,7 +344,9 @@ def full_width(profile=False):
             raise AssertionError(f"request {r.req_id}: "
                                  f"{len(res.outputs[r.req_id])} tokens")
     want = {"paged_decode_attention": cfg.n_layers * packed,
-            "paged_chunked_prefill_attention": cfg.n_layers * with_chunk}
+            "paged_chunked_prefill_attention": cfg.n_layers * with_chunk,
+            # no serving path runs the dense-row kernels, as in JAX
+            "chunked_prefill_attention": 0, "decode_attention": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
     hybrid = [s for c, s in steps if c]
@@ -339,26 +360,280 @@ def full_width(profile=False):
         f"{n_out / wall:.1f} output tokens/s ({wall:.2f} s run)")
     log(f"  launches over run(): {launches} (= {cfg.n_layers} layers x "
         f"{packed} packed steps / {with_chunk} steps with a chunk)")
-    del srv, eng, params
-    torch.cuda.empty_cache()
-    return launches
+    return launches, params
 
 
-def report_profile(prof, wall, n_steps):
-    """Device time by kernel over the profiled run, and the device's busy
-    share of the (profiler-slowed) wall time."""
+# --------------------------------------------------------------------------
+# phase 5: K1 / K2 at their own entry points
+# --------------------------------------------------------------------------
+K1_SHAPES = [  # tests/test_kernels.py: C, S, nq, nk, hd, start
+    (128, 256, 4, 4, 64, 0), (128, 512, 8, 2, 64, 128),
+    (256, 1024, 16, 8, 128, 640), (128, 128, 4, 1, 256, 0),
+    (128, 384, 14, 2, 64, 200)]
+K2_SHAPES = [  # tests/test_kernels.py: B, S, nq, nk, hd
+    (4, 512, 8, 2, 64), (2, 256, 4, 4, 128), (3, 384, 16, 1, 64),
+    (1, 128, 14, 2, 64)]
+# full width: paper-llama-13b heads, a 256-row chunk at 768 / 4 decodes
+K1_FULL = (256, 2048, 40, 40, 128, 768)
+K2_FULL = (4, 2048, 40, 40, 128)
+
+
+def dense_case(name, shape, dtype_name, gen, rng, timed):
+    """One K1 (``chunked_prefill_attention``) or K2 (``decode_attention``)
+    case: the kernel on clean inputs and on inputs whose keys past every
+    row's visible ones are poisoned (K +99, V -99) against the plain
+    version on the clean inputs; timed, also the plain version, the bound
+    and one ``scaled_dot_product_attention`` call.  Returns a row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    dtype = getattr(torch, dtype_name)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    size = torch.finfo(dtype).bits // 8
+    if name == "chunked_prefill_attention":
+        C, S, nq, nk, hd, start = shape
+        q, k, v = randn(C, nq, hd), randn(S, nk, hd), randn(S, nk, hd)
+        start_t = torch.tensor(start, dtype=torch.int32, device="cuda")
+        kp, vp = k.clone(), v.clone()
+        kp[start + C:], vp[start + C:] = 99.0, -99.0
+
+        def kern(k=k, v=v):
+            return ops.chunked_prefill_attention(q, k, v, start_t)
+
+        def plain():
+            return ref.chunked_prefill_attention_ref(q, k, v, start_t)
+
+        pos = start + torch.arange(C, device="cuda")
+        mask = torch.arange(S, device="cuda")[None] <= pos[:, None]
+        sq, sk, sv = (t.transpose(0, 1)[None] for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, enable_gqa=True)[0] \
+                .transpose(0, 1)
+
+        n_keys = start + C                     # K/V rows any row sees
+        n_ops = sum(4 * hd * nq * (start + i + 1) for i in range(C))
+        n_int = 4
+    else:
+        B, S, nq, nk, hd = shape
+        q = randn(B, nq, hd)
+        k, v = randn(B, S, nk, hd), randn(B, S, nk, hd)
+        ctx = rng.integers(S // 8, S, B).astype("int32")
+        ctx_t = torch.from_numpy(ctx).cuda()
+        kp, vp = k.clone(), v.clone()
+        for b, c in enumerate(ctx):
+            kp[b, c + 1:], vp[b, c + 1:] = 99.0, -99.0
+
+        def kern(k=k, v=v):
+            return ops.decode_attention(q, k, v, ctx_t)
+
+        def plain():
+            return ref.decode_attention_ref(q, k, v, ctx_t)
+
+        mask = (torch.arange(S, device="cuda")[None] <= ctx_t[:, None].long()
+                )[:, None, None]
+        sq, sk, sv = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+        n_keys = sum(int(c) + 1 for c in ctx)
+        n_ops = sum(4 * hd * nq * (int(c) + 1) for c in ctx)
+        n_int = 4 * B
+    want = plain()
+    tol = TOL[dtype_name]
+    err = max(max_err(kern(), want, tol), max_err(kern(kp, vp), want, tol))
+    # bytes: q + out + the visible K/V rows + start / ctx
+    n_bytes = 2 * q.numel() * size + n_keys * 2 * nk * hd * size + n_int
+    row = {"max_abs_err": err,
+           "bound_ms": 1e3 * max(n_bytes / HBM_BYTES_PER_S,
+                                 n_ops / PEAK_OPS[dtype_name]),
+           "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                        >= n_ops / PEAK_OPS[dtype_name] else "operations")}
+    if timed:
+        max_err(library(), want, tol)          # the yardstick computes it
+        row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                   library_ms=cuda_ms(library))
+    log(f"  {name:26s} {str(shape):30s} {dtype_name:9s} max_abs_err "
+        f"{err:.3e}" + (f"  kernel {row['ms']:.4f} ms  plain "
+                        f"{row['plain_ms']:.4f} ms  bound "
+                        f"{row['bound_ms']:.4f} ms ({row['bound_by']})  "
+                        f"sdpa {row['library_ms']:.4f} ms" if timed else ""))
+    return row
+
+
+def dense_kernels():
+    """Phase 5; returns the full-width row of each kernel and the launch
+    counts over the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ops.reset_launches()
+    rows = {}
+    for name, shapes, full in (
+            ("chunked_prefill_attention", K1_SHAPES, K1_FULL),
+            ("decode_attention", K2_SHAPES, K2_FULL)):
+        for dt in ("float32", "bfloat16"):
+            for shape in shapes + [full]:
+                timed = shape == full and dt == "bfloat16"
+                row = dense_case(name, shape, dt, gen, rng, timed)
+                if timed:
+                    rows[name] = row
+    launches = dict(ops.launches)
+    for name in rows:
+        if not launches[name]:
+            raise AssertionError(f"{name}: no launch in phase 5")
+    return rows, launches
+
+
+# --------------------------------------------------------------------------
+# phases 6 and 7: forward_batched at full width, and the Fig. 6 claim
+# --------------------------------------------------------------------------
+N_PROMPTS, PROMPT_LEN, N_DECODE = 4, 1024, 16
+
+
+def prompts(vocab):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, vocab, (N_PROMPTS, PROMPT_LEN))
+                            .astype(np.int32)).cuda()
+
+
+def batched_full_width(cfg, params, profile=False):
+    """A batched prefill and N_DECODE batched greedy decode steps, timed
+    with CUDA events (``profile``: each of the two under torch.profiler
+    instead)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    toks = prompts(cfg.vocab_size)
+    cache = model.init_cache(rows=N_PROMPTS, max_len=MAX_LEN,
+                             dtype=torch.bfloat16)
+
+    def offsets(n):
+        return torch.full((N_PROMPTS,), n, dtype=torch.int32, device="cuda")
+
+    def finite(x, shape):
+        if tuple(x.shape) != shape or not torch.isfinite(x).all():
+            raise AssertionError(f"logits {tuple(x.shape)} not finite or "
+                                 f"not {shape}")
+
+    def prefill():
+        return model.forward_batched(params, toks, cache, offsets(0),
+                                     logits_mode="last")[0]
+
+    def decode(logits):
+        """Greedy steps from the prefill's logits; each step's ms."""
+        steps = []
+        for i in range(N_DECODE):
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits = model.forward_batched(params, tok, cache,
+                                           offsets(PROMPT_LEN + i),
+                                           logits_mode="last")[0]
+            b.record()
+            b.synchronize()
+            steps.append(a.elapsed_time(b))
+            finite(logits, (N_PROMPTS, cfg.vocab_size))
+        return steps
+
+    ops.reset_launches()
+    with torch.inference_mode():
+        logits = prefill()
+        finite(logits, (N_PROMPTS, cfg.vocab_size))
+        if profile:
+            log("  one prefill:")
+            profiled(prefill)
+            log(f"  {N_DECODE} decode steps:")
+            profiled(lambda: decode(logits))
+            return
+        prefill_ms = cuda_ms(prefill, reps=3, warm=0)   # rewrites the same KV
+        steps = decode(logits)
+    if any(ops.launches.values()):
+        raise AssertionError(f"forward_batched launched {ops.launches}")
+    log(f"  {N_PROMPTS} x {PROMPT_LEN}-token prefill {prefill_ms:.3f} ms "
+        f"(median of 3), {N_DECODE} decode steps: median "
+        f"{statistics.median(steps):.3f} ms, min {min(steps):.3f}, max "
+        f"{max(steps):.3f}; all logits finite; no kernel launched (plain "
+        f"attention, as in JAX)")
+
+
+def fig6_check():
+    """Chunked (384, 256, 384) == full prefill at float32; returns max
+    |difference| of the last logits."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, init_params
+
+    cfg = dataclasses.replace(get_config("paper-llama-13b"), n_layers=4)
+    params = init_params(cfg, seed=0, dtype=torch.float32)
+    model = build_model(cfg)
+    toks = prompts(cfg.vocab_size)
+
+    def prefill(spans):
+        cache = model.init_cache(rows=N_PROMPTS, max_len=MAX_LEN)
+        for c0, c1 in spans:
+            start = torch.full((N_PROMPTS,), c0, dtype=torch.int32,
+                               device="cuda")
+            last = model.forward_batched(params, toks[:, c0:c1], cache,
+                                         start, logits_mode="last")[0]
+        return last
+
+    with torch.inference_mode():
+        full = prefill([(0, PROMPT_LEN)])
+        chunked = prefill([(0, 384), (384, 640), (640, PROMPT_LEN)])
+    diff = (chunked - full).abs()
+    bad = diff > 5e-4 + 5e-4 * full.abs()
+    if bad.any() or not torch.isfinite(full).all():
+        raise AssertionError(f"chunked != full prefill: {int(bad.sum())} "
+                             f"logits off, max |diff| {float(diff.max())}")
+    log(f"  {cfg.n_layers} layers, {N_PROMPTS} x {PROMPT_LEN} tokens: "
+        f"max |chunked - full| {float(diff.max()):.3e} over "
+        f"{full.numel()} last logits (max |logit| "
+        f"{float(full.abs().max()):.3f}); rtol = atol = 5e-4 hold")
+    return float(diff.max())
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler; logs the device time by kernel and
+    the device's busy share of the (profiler-slowed) wall time, and
+    returns what ``fn`` returned."""
+    import torch
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
     events = prof.key_averages()
     # device-side events only: an aten op's row repeats its kernels' time
     dev = sorted(((e.self_device_time_total, e.count, e.key)
                   for e in events if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0), reverse=True)
     busy_us = sum(t for t, _, _ in dev)
-    log(f"  profiled: {n_steps} steps in {1e3 * wall:.1f} ms wall, device "
+    log(f"  profiled: {1e3 * wall:.1f} ms wall, device "
         f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}%), "
         f"{sum(c for _, c, _ in dev)} device ops")
     for t, c, k in dev[:15]:
         log(f"    {t / 1e3:9.2f} ms {c:7d}x  {k[:90]}")
+    return out
 
 
 def main() -> int:
@@ -392,8 +667,15 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     if "--profile" in sys.argv[1:]:
+        from repro_torch.configs import get_config
         log("== profile: paper-llama-13b bf16 run() under torch.profiler")
-        full_width(profile=True)
+        _, params = full_width(profile=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== profile: paper-llama-13b bf16 forward_batched under "
+            "torch.profiler")
+        batched_full_width(get_config("paper-llama-13b"), params,
+                           profile=True)
         return 0
 
     log("== 2. kernels vs plain versions (poisoned scratch block 0)")
@@ -420,18 +702,37 @@ def main() -> int:
     log(f"  greedy tokens equal for {len(on_cpu)} requests: {on_gpu}")
 
     log("== 4. paper-llama-13b bf16, Server(sarathi, paged), full width")
-    launches = full_width()
+    launches, params = full_width()
+    gc.collect()                  # the engine's pool (a reference cycle)
+    torch.cuda.empty_cache()
+
+    log("== 5. K1/K2 at their entry points vs plain versions (stale tails "
+        "poisoned)")
+    dense_rows, dense_launches = dense_kernels()
+    log(f"  launches over phase 5: {dense_launches}")
+    main_row.update(dense_rows)
+    launches.update({n: dense_launches[n] for n in dense_rows})
+
+    log("== 6. paper-llama-13b bf16, forward_batched, full width")
+    batched_full_width(get_config("paper-llama-13b"), params)
+    del params
+    torch.cuda.empty_cache()
+
+    log("== 7. Fig. 6: chunked == full prefill, paper-llama-13b x 4 layers, "
+        "float32")
+    fig6_check()
 
     kernels = []
-    for name in ("paged_chunked_prefill_attention", "paged_decode_attention"):
+    for name in REPLACES:
         r = main_row[name]
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name],
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCE[name], "replaces": REPLACES[name],
                         "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "paged_chunked_prefill_attention":
             [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
+    "dense_attention": {
+        # dtype, hd, q, k, v, ctx, out, B, S, nq, nk, scale, stream
+        "decode_attention":
+            [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # dtype, hd, q, k, v, start, out, C, S, nq, nk, scale, stream
+        "chunked_prefill_attention":
+            [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

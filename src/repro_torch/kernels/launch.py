@@ -13,10 +13,17 @@ from typing import Dict, Tuple
 
 import torch
 
-launches: Dict[str, int] = {
-    "paged_chunked_prefill_attention": 0,
-    "paged_decode_attention": 0,
+# per kernel: the head dims it is built for, and whether one block holds
+# the g query heads of a KV head (the decode kernels: g <= MAX_GROUP)
+KERNELS: Dict[str, Tuple[Tuple[int, ...], bool]] = {
+    "paged_chunked_prefill_attention": ((64, 128), False),
+    "paged_decode_attention": ((64, 128), True),
+    "chunked_prefill_attention": ((64, 128, 256), False),
+    "decode_attention": ((64, 128, 256), True),
 }
+MAX_GROUP = 16
+
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def reset_launches() -> None:
@@ -25,46 +32,46 @@ def reset_launches() -> None:
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
-MAX_GROUP = 16          # query heads per KV head a decode block holds
 
 
 def dtype_code(t: torch.Tensor) -> int:
     return _DTYPES[t.dtype]
 
 
-def check_inputs(name: str, q: torch.Tensor, pool_kv: torch.Tensor,
+def check_inputs(name: str, q: torch.Tensor, n_kv_heads: int,
+                 kv: Dict[str, Tuple[torch.Tensor, tuple]],
                  ints: Dict[str, Tuple[torch.Tensor, tuple]]) -> None:
-    """q [T, nq, hd] and pool_kv [N, bs, 2 * nk, hd] of one dtype on one
-    CUDA device, contiguous; ``ints`` maps a name to (int32 tensor,
-    expected shape)."""
+    """q [T, nq, hd] on a CUDA device; ``kv`` maps a name to (tensor of
+    q's dtype, expected shape), each 16-byte aligned; ``ints`` maps a name
+    to (int32 tensor, expected shape); all on q's device, contiguous."""
+    head_dims, grouped = KERNELS[name]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: q on {q.device}, expected cpu or cuda")
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} not in "
                         f"{sorted(map(str, _DTYPES))}")
-    if pool_kv.dtype != q.dtype:
-        raise TypeError(f"{name}: pool {pool_kv.dtype} != q {q.dtype}")
-    if q.dim() != 3 or pool_kv.dim() != 4:
-        raise ValueError(f"{name}: q must be 3-D, pool_kv 4-D")
+    if q.dim() != 3:
+        raise ValueError(f"{name}: q must be 3-D, got {tuple(q.shape)}")
     hd = q.shape[2]
-    nch = pool_kv.shape[2]
-    if hd not in HEAD_DIMS or pool_kv.shape[3] != hd:
-        raise ValueError(f"{name}: head_dim {hd} (pool {pool_kv.shape[3]}) "
-                         f"not in {HEAD_DIMS}")
-    if nch % 2 or q.shape[1] % (nch // 2):
-        raise ValueError(f"{name}: {q.shape[1]} query heads do not group "
-                         f"over {nch // 2} KV heads")
-    if q.shape[1] // (nch // 2) > MAX_GROUP:
-        raise ValueError(f"{name}: group size {q.shape[1] // (nch // 2)} "
-                         f"> {MAX_GROUP}")
-    tensors = {"q": q, "pool_kv": pool_kv}
-    for key, (t, shape) in ints.items():
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
-            raise TypeError(f"{name}: {key} must be an int32 tensor")
+    if hd not in head_dims:
+        raise ValueError(f"{name}: head_dim {hd} not in {head_dims}")
+    nq = q.shape[1]
+    if n_kv_heads <= 0 or nq % n_kv_heads:
+        raise ValueError(f"{name}: {nq} query heads do not group over "
+                         f"{n_kv_heads} KV heads")
+    if grouped and nq // n_kv_heads > MAX_GROUP:
+        raise ValueError(f"{name}: group size {nq // n_kv_heads} > "
+                         f"{MAX_GROUP}")
+    tensors = {"q": q}
+    for key, (t, shape) in {**kv, **ints}.items():
+        want = q.dtype if key in kv else torch.int32
+        if not isinstance(t, torch.Tensor) or t.dtype != want:
+            raise TypeError(f"{name}: {key} must be a {want} tensor")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {key} shape {tuple(t.shape)} != "
                              f"{shape}")
+        if key in kv and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
         tensors[key] = t
     for key, t in tensors.items():
         if t.device != q.device:
@@ -72,8 +79,6 @@ def check_inputs(name: str, q: torch.Tensor, pool_kv: torch.Tensor,
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    if pool_kv.data_ptr() % 16:
-        raise ValueError(f"{name}: pool_kv must be 16-byte aligned")
 
 
 def launch_status(name: str, rc: int) -> None:

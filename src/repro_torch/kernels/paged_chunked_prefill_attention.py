@@ -31,9 +31,10 @@ def paged_chunked_prefill_attention(q, pool_kv, block_table, start):
         return ref.paged_chunked_prefill_attention_ref(q, pool_kv,
                                                        block_table, start)
     C, nq, hd = q.shape
-    bs, nch = pool_kv.shape[1], pool_kv.shape[2]
+    N, bs, nk = pool_kv.shape[0], pool_kv.shape[1], pool_kv.shape[-2] // 2
     M = block_table.shape[0]
-    check_inputs("paged_chunked_prefill_attention", q, pool_kv,
+    check_inputs("paged_chunked_prefill_attention", q, nk,
+                 kv={"pool_kv": (pool_kv, (N, bs, 2 * nk, hd))},
                  ints={"block_table": (block_table, (M,)),
                        "start": (start, ())})
     out = torch.empty_like(q)
@@ -44,7 +45,7 @@ def paged_chunked_prefill_attention(q, pool_kv, block_table, start):
     rc = lib.paged_chunked_prefill_attention(
         dtype_code(q), hd, q.data_ptr(), pool_kv.data_ptr(),
         block_table.data_ptr(), start.data_ptr(), out.data_ptr(),
-        C, nq, nch // 2, bs, M, 1.0 / math.sqrt(hd),
+        C, nq, nk, bs, M, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     launch_status("paged_chunked_prefill_attention", rc)
     launches["paged_chunked_prefill_attention"] += 1

@@ -25,9 +25,10 @@ def paged_decode_attention(q, pool_kv, block_tables, ctx):
     if q.device.type == "cpu":
         return ref.paged_decode_attention_ref(q, pool_kv, block_tables, ctx)
     B, nq, hd = q.shape
-    bs, nch = pool_kv.shape[1], pool_kv.shape[2]
-    M = block_tables.shape[1]
-    check_inputs("paged_decode_attention", q, pool_kv,
+    N, bs, nk = pool_kv.shape[0], pool_kv.shape[1], pool_kv.shape[-2] // 2
+    M = block_tables.shape[-1]
+    check_inputs("paged_decode_attention", q, nk,
+                 kv={"pool_kv": (pool_kv, (N, bs, 2 * nk, hd))},
                  ints={"block_tables": (block_tables, (B, M)),
                        "ctx": (ctx, (B,))})
     out = torch.empty_like(q)
@@ -38,7 +39,7 @@ def paged_decode_attention(q, pool_kv, block_tables, ctx):
     rc = lib.paged_decode_attention(
         dtype_code(q), hd, q.data_ptr(), pool_kv.data_ptr(),
         block_tables.data_ptr(), ctx.data_ptr(), out.data_ptr(),
-        B, nq, nch // 2, bs, M, 1.0 / math.sqrt(hd),
+        B, nq, nk, bs, M, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     launch_status("paged_decode_attention", rc)
     launches["paged_decode_attention"] += 1

@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the paged attention kernels.
+"""Plain PyTorch versions of the attention kernels.
 
 The wrappers take these for tensors on the CPU, and ``chip_smoke.py``
-holds each CUDA kernel against them on the card.  They gather the
-request's blocks into dense rows, de-interleave K/V and run
-:func:`repro_torch.models.common.gqa_attention` — the same composition as
-the JAX package's ``repro.kernels.ref`` oracles.
+holds each CUDA kernel against them on the card.  They run
+:func:`repro_torch.models.common.gqa_attention` under the kernel's mask;
+the paged ones first gather the request's blocks into dense rows and
+de-interleave K/V — the same composition as the JAX package's
+``repro.kernels.ref`` oracles.
 """
 from __future__ import annotations
 

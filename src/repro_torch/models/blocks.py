@@ -1,4 +1,4 @@
-"""Attention layer blocks of the dense packed path.
+"""Attention layer blocks of the packed and batched paths.
 
 PyTorch counterparts of the full-attention parts of ``repro.models.blocks``:
 parameters are ``nn.Parameter``s under the JAX leaf names (``wq``, ``wk``,
@@ -7,7 +7,8 @@ out ``[in, out]`` and applied as ``x @ w``.
 
 The packed path takes a SARATHI hybrid batch ``x [C + D, d]``: the
 projections run once over all tokens, attention splits the chunk and the
-decode segments.  KV caches are updated in place.
+decode segments.  The batched path takes ``x [B, L, d]``, row ``b`` at
+positions ``start[b] + i``.  KV caches are updated in place.
 """
 from __future__ import annotations
 
@@ -63,6 +64,31 @@ def init_attn_cache(cfg: ModelConfig, rows: int, max_len: int, dtype,
     shp = (rows, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shp, dtype=dtype, device=device),
             "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def attn_batched(cfg, p, x, cache, start, *, train: bool):
+    """x [B, L, d]; cache rows == B (``{"k", "v"}``, written in place at
+    ``start``) or None; start [B] absolute offset per row.  ``train`` (or
+    no cache) attends the L tokens among themselves.  Returns (out
+    [B, L, d], cache).  The attention is plain torch on every device, as
+    the JAX package keeps it plain jnp."""
+    B, L, _ = x.shape
+    q, k, v = _qkv(cfg, p, x)
+    pos = start[:, None] + torch.arange(L, dtype=torch.int32,
+                                        device=x.device)[None, :]
+    sin, cos = cm.rope_sin_cos(pos, cfg.head_dim, cfg.rope_theta)
+    q = cm.apply_rope(q, sin, cos)
+    k = cm.apply_rope(k, sin, cos)
+    if train or cache is None:
+        out = cm.blocked_gqa_attention(q, k, v, pos)
+    else:
+        if "k" not in cache:
+            raise ValueError("forward_batched takes a dense cache "
+                             "(init_cache without paged_blocks)")
+        ck = cm.write_kv_rows(cache["k"], k, start)
+        cv = cm.write_kv_rows(cache["v"], v, start)
+        out = cm.blocked_gqa_attention(q, ck, cv, pos)
+    return out.reshape(B, L, cfg.q_dim) @ p.wo, cache
 
 
 def init_paged_attn_cache(cfg: ModelConfig, n_blocks: int, block_size: int,

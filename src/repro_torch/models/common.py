@@ -1,9 +1,10 @@
 """Shared model primitives: norms, RoPE, attention math, cache plumbing, FFNs.
 
-PyTorch counterparts of ``repro.models.common`` for the dense packed path.
-:func:`gqa_attention` is the plain attention that the dense branch runs
-and that the paged kernels' plain versions (``repro_torch.kernels.ref``)
-compose.  Unlike JAX, the cache writers update the cache tensor IN PLACE
+PyTorch counterparts of ``repro.models.common`` for the dense packed and
+batched paths.  :func:`gqa_attention` is the plain attention that the
+dense packed branch runs and that the kernels' plain versions
+(``repro_torch.kernels.ref``) compose; :func:`blocked_gqa_attention` is the
+batched forward's.  Unlike JAX, the cache writers update the cache tensor IN PLACE
 (no functional copy of a multi-GB pool per step) and return it.
 """
 from __future__ import annotations
@@ -110,6 +111,48 @@ def gqa_attention(q, k, v, mask):
     return out.reshape(B, L, nq, hd)
 
 
+def blocked_gqa_attention(q, k, v, q_pos, *, qb: int = 128,
+                          kb: int = 4096):
+    """Memory-efficient (flash-style) causal GQA in plain PyTorch: loops
+    over query and key blocks with an online softmax, so only ``qb x kb``
+    scores per (row, head) live at once instead of ``Lq x S``.  The
+    JAX package's ``blocked_gqa_attention`` (full attention).
+
+    q     [B, Lq, nq, hd]
+    k, v  [B, S, nk, hd]
+    q_pos [B, Lq] absolute positions; key ``j`` (at position ``j``) is
+    visible iff ``j <= q_pos``.  A row that sees no key outputs 0.
+    """
+    B, Lq, nq, hd = q.shape
+    S, nk = k.shape[1], k.shape[2]
+    g = nq // nk
+    scale = 1.0 / math.sqrt(hd)
+    kpos = torch.arange(S, dtype=torch.int32, device=q.device)
+    out = torch.empty_like(q)
+    for q0 in range(0, Lq, qb):
+        qblk = q[:, q0:q0 + qb].reshape(B, -1, nk, g, hd).float()
+        qp = q_pos[:, q0:q0 + qb, None]                   # [B, qb, 1]
+        m = torch.full(qblk.shape[:-1], NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qblk.shape, device=q.device)
+        for k0 in range(0, S, kb):
+            kblk, vblk = k[:, k0:k0 + kb], v[:, k0:k0 + kb]
+            s = torch.einsum("bqkgh,bskh->bqkgs", qblk, kblk.float()) * scale
+            valid = (kpos[None, None, k0:k0 + kb] <= qp)[:, :, None, None]
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqkgs,bskh->bqkgh", p.to(v.dtype), vblk).float()
+            m = m_new
+        o = torch.where(l[..., None] > 0,
+                        acc / torch.clamp(l[..., None], min=1e-30), 0.0)
+        out[:, q0:q0 + qb] = o.reshape(B, -1, nq, hd).to(q.dtype)
+    return out
+
+
 def causal_cache_mask(q_pos, kv_len: int):
     """Mask for queries at absolute positions ``q_pos`` [B, L] attending a
     cache laid out 0..kv_len-1 by absolute position.  True = attend.
@@ -122,6 +165,20 @@ def causal_cache_mask(q_pos, kv_len: int):
 # --------------------------------------------------------------------------
 # KV-cache plumbing (in place)
 # --------------------------------------------------------------------------
+def write_kv_rows(cache, new, start):
+    """Write each row's L new tokens at its own offset, in place: cache
+    [B, S, nk, hd], new [B, L, nk, hd], start [B].  An offset past
+    ``S - L`` is clamped to it, as JAX's ``dynamic_update_slice`` clamps
+    (the JAX package's ``write_kv_rows`` semantics)."""
+    B, L = new.shape[:2]
+    S = cache.shape[1]
+    first = torch.clamp(start.long(), 0, max(S - L, 0))
+    cols = first[:, None] + torch.arange(L, device=cache.device)
+    rows = torch.arange(B, device=cache.device)[:, None]
+    cache[rows, cols] = new
+    return cache
+
+
 def write_kv_slot(cache, new, slot, start):
     """Write one sequence's C new tokens into cache row ``slot`` at
     ``start``, in place.

@@ -24,6 +24,13 @@ class Model:
                                 paged_blocks=paged_blocks,
                                 block_size=block_size, device=device)
 
+    def forward_batched(self, params, tokens, cache=None, start=None, *,
+                        memory=None, train=False, logits_mode="all",
+                        remat=False):
+        return stack.forward_batched(
+            self.cfg, params, tokens, cache, start, memory=memory,
+            train=train, logits_mode=logits_mode, remat=remat)
+
     def forward_packed(self, params, pk: PackedBatch, cache):
         return stack.forward_packed(self.cfg, params, pk, cache)
 

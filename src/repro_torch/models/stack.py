@@ -1,11 +1,13 @@
-"""Decoder stack of the dense packed path.
+"""Decoder stack of the port: the packed and the batched forward.
 
 PyTorch counterpart of ``repro.models.stack`` for the ``dense`` layer kind
 with the glu or mlp FFN: :class:`Transformer` is an ``nn.Module`` whose
 parameters keep the JAX leaf names (``embed``, ``final_norm``,
-``unembed``; per layer ``ln1``, ``mixer.*``, ``ln2``, ``ffn.*``), and
-:func:`forward_packed` runs one SARATHI hybrid step, looping over the
-layers in Python where JAX scans them.  The cache is a list with one dict
+``unembed``; per layer ``ln1``, ``mixer.*``, ``ln2``, ``ffn.*``).
+:func:`forward_packed` runs one SARATHI hybrid step and
+:func:`forward_batched` a ``[B, L]`` batch (full or chunked prefill,
+batched decode, or the no-cache forward), looping over the layers in
+Python where JAX scans them.  The cache is a list with one dict
 per layer, updated in place.
 """
 from __future__ import annotations
@@ -161,6 +163,17 @@ def apply_layer_packed(cfg, kind, p, x, cache, pk: PackedBatch):
     return x, cache, 0.0
 
 
+def apply_layer_batched(cfg, kind, p, x, cache, start, *, train: bool):
+    if kind != "dense":
+        raise NotImplementedError(kind)
+    h = cm.rms_norm(x, p.ln1, cfg.norm_eps)
+    mo, _ = bk.attn_batched(cfg, p.mixer, h, cache and cache["attn"],
+                            start, train=train)
+    x = x + mo
+    x = x + _apply_ffn(cfg, p, x)
+    return x, cache, 0.0
+
+
 def _unembed(cfg, params, x):
     if cfg.tie_embeddings:
         return x @ params.embed.T
@@ -187,3 +200,44 @@ def forward_packed(cfg: ModelConfig, params: Transformer, pk: PackedBatch,
         chunk_logits = None
     decode_logits = _unembed(cfg, params, x[C:]) if D else None
     return chunk_logits, decode_logits, cache, aux
+
+
+_LOGITS_MODES = ("all", "last", "hidden", "none")
+
+
+def forward_batched(cfg: ModelConfig, params: Transformer, tokens,
+                    cache: Optional[List[Dict]] = None, start=None, *,
+                    memory=None, train: bool = False,
+                    logits_mode: str = "all", remat: bool = False):
+    """tokens [B, L] int; cache (rows == B, dense, updated in place) or
+    None; start [B] int32 offsets (default 0).  Returns (logits, cache,
+    aux).  ``logits_mode``: "all" -> [B, L, V]; "last" -> [B, V];
+    "hidden" -> the final hidden states [B, L, d]; "none" -> None."""
+    if remat:
+        raise NotImplementedError("remat: the port has no training yet "
+                                  "(ROADMAP Queue 1, training)")
+    if memory is not None:
+        raise NotImplementedError("memory: cross attention is not ported "
+                                  "yet (ROADMAP Queue 1, the other mixers)")
+    if logits_mode not in _LOGITS_MODES:
+        raise ValueError(f"logits_mode {logits_mode!r} not in "
+                         f"{_LOGITS_MODES}")
+    B, L = tokens.shape
+    x = params.embed[tokens.long()]
+    if start is None:
+        start = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    aux = 0.0
+    layer_caches = cache if cache is not None else [None] * cfg.n_layers
+    for kind, p, c in zip(layer_kinds(cfg), params.layers, layer_caches):
+        x, _, a = apply_layer_batched(cfg, kind, p, x, c, start, train=train)
+        aux = aux + a
+    x = cm.rms_norm(x, params.final_norm, cfg.norm_eps)
+    if logits_mode == "all":
+        logits = _unembed(cfg, params, x)
+    elif logits_mode == "last":
+        logits = _unembed(cfg, params, x[:, -1])
+    elif logits_mode == "hidden":
+        logits = x
+    else:
+        logits = None
+    return logits, cache, aux

@@ -1,6 +1,7 @@
-"""The port's paged attention kernels on the CPU: their plain PyTorch
-versions against the JAX package's Pallas kernels (interpret mode), the
-scratch-block contract, and the launch counts.  The CUDA kernels
+"""The port's attention kernels on the CPU: their plain PyTorch versions
+against the JAX package's Pallas kernels (interpret mode) and its jnp
+oracles, the scratch-block and stale-tail contracts, the tiling contract
+of the dense entry points, and the launch counts.  The CUDA kernels
 themselves run only on the card (``chip_smoke.py`` holds them against
 these plain versions there)."""
 import numpy as np
@@ -13,6 +14,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import (  # noqa: E402
     paged_chunked_prefill_attention as jax_pcpa,
     paged_decode_attention as jax_pda)
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 # fp32: same algorithm, different summation order; bf16: one rounding of
@@ -133,6 +136,117 @@ def test_plain_versions_ignore_poisoned_scratch_tail():
         rtol=1e-6, atol=1e-6)
 
 
+# --------------------------------------------------------------------------
+# K1 / K2: dense-row kernels, at every shape of tests/test_kernels.py
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,S,nq,nk,hd,start", [
+    (128, 256, 4, 4, 64, 0),        # MHA, first chunk
+    (128, 512, 8, 2, 64, 128),      # GQA g=4, later chunk
+    (256, 1024, 16, 8, 128, 640),   # GQA g=2, deep prefix
+    (128, 128, 4, 1, 256, 0),       # MQA, gemma-style head_dim
+    (128, 384, 14, 2, 64, 200),     # qwen2 head config (start mid-block)
+])
+def test_chunked_prefill_plain_matches_pallas(C, S, nq, nk, hd, start,
+                                              dtype):
+    rng = np.random.default_rng(C + S + nq)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.standard_normal(shape).astype(np.float32), dtype)
+        for shape in ((C, nq, hd), (S, nk, hd), (S, nk, hd)))
+    got = ops.chunked_prefill_attention(qt, kt, vt, start)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, jax_ops.chunked_prefill_attention(qj, kj, vj, start), dtype)
+    _close(got, jax_ref.chunked_prefill_attention_ref(qj, kj, vj, start),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,nq,nk,hd", [
+    (4, 512, 8, 2, 64),
+    (2, 256, 4, 4, 128),
+    (3, 384, 16, 1, 64),
+    (1, 128, 14, 2, 64),
+])
+def test_decode_plain_matches_pallas(B, S, nq, nk, hd, dtype):
+    rng = np.random.default_rng(B * S)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.standard_normal(shape).astype(np.float32), dtype)
+        for shape in ((B, nq, hd), (B, S, nk, hd), (B, S, nk, hd)))
+    ctx = rng.integers(0, S, B).astype(np.int32)
+    got = ops.decode_attention(qt, kt, vt, torch.from_numpy(ctx))
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, jax_ops.decode_attention(qj, kj, vj, jnp.asarray(ctx)), dtype)
+    _close(got, jax_ref.decode_attention_ref(qj, kj, vj, jnp.asarray(ctx)),
+           dtype)
+
+
+def test_chunked_prefill_composes_to_full_prefill():
+    """The kernel-level Fig. 6 claim: the chunk entry point run chunk by
+    chunk reproduces full self-attention (the JAX oracle's)."""
+    S, nq, nk, hd, C = 512, 4, 2, 64, 128
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((S, nq, hd), (S, nk, hd), (S, nk, hd)))
+    full = jax_ref.chunked_prefill_attention_ref(q, k, v, 0)
+    kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+    outs = [ops.chunked_prefill_attention(torch.from_numpy(q[s:s + C]), kt,
+                                          vt, s) for s in range(0, S, C)]
+    _close(torch.cat(outs), full, "float32")
+
+
+def test_dense_kernels_ignore_stale_tail():
+    """Keys past a row's visible ones (stale cache contents, poisoned here
+    with +-99) must not reach the output."""
+    B, S, nq, nk, hd = 2, 256, 4, 2, 64
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+               for shape in ((B, nq, hd), (B, S, nk, hd), (B, S, nk, hd)))
+    ctx = torch.tensor([100, 31], dtype=torch.int32)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 150:], v2[:, 150:] = 99.0, -99.0
+    torch.testing.assert_close(ops.decode_attention(q, k2, v2, ctx),
+                               ops.decode_attention(q, k, v, ctx),
+                               rtol=1e-6, atol=1e-6)
+
+    C, start = 128, 20                   # rows see keys <= 147
+    qc = torch.from_numpy(rng.standard_normal((C, nq, hd))
+                          .astype(np.float32))
+    torch.testing.assert_close(
+        ops.chunked_prefill_attention(qc, k2[0], v2[0], start),
+        ops.chunked_prefill_attention(qc, k[0], v[0], start),
+        rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("C,S,bq,bk", [(100, 256, 128, 128),
+                                       (128, 200, 128, 128),
+                                       (128, 256, 64, 96)])
+def test_chunked_prefill_untiled_shapes_raise_as_jax(C, S, bq, bk):
+    q = np.zeros((C, 4, 64), np.float32)
+    k = np.zeros((S, 2, 64), np.float32)
+    with pytest.raises(ValueError) as want:
+        jax_ops.chunked_prefill_attention(q, k, k, 0, bq=bq, bk=bk)
+    with pytest.raises(ValueError) as got:
+        ops.chunked_prefill_attention(torch.from_numpy(q),
+                                      torch.from_numpy(k),
+                                      torch.from_numpy(k), 0, bq=bq, bk=bk)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("S,bk", [(200, 128), (256, 96)])
+def test_decode_untiled_shapes_raise_as_jax(S, bk):
+    q = np.zeros((2, 4, 64), np.float32)
+    k = np.zeros((2, S, 2, 64), np.float32)
+    ctx = np.array([3, 9], np.int32)
+    with pytest.raises(ValueError) as want:
+        jax_ops.decode_attention(q, k, k, ctx, bk=bk)
+    with pytest.raises(ValueError) as got:
+        ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(k), torch.from_numpy(ctx),
+                             bk=bk)
+    assert str(got.value) == str(want.value)
+
+
 def test_cpu_calls_launch_no_kernel():
     ops.reset_launches()
     rng = np.random.default_rng(0)
@@ -142,17 +256,31 @@ def test_cpu_calls_launch_no_kernel():
                                torch.tensor([3, 17], dtype=torch.int32))
     ops.paged_chunked_prefill_attention(
         q, pool, torch.tensor([1, 2], dtype=torch.int32), 5)
+    k = torch.zeros((2, 128, NK, 64))
+    ops.decode_attention(q, k, k, torch.tensor([3, 17], dtype=torch.int32))
+    ops.chunked_prefill_attention(torch.zeros((128, 2 * NK, 64)), k[0],
+                                  k[0], 0)
     assert ops.launches == {"paged_chunked_prefill_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0,
+                            "chunked_prefill_attention": 0,
+                            "decode_attention": 0}
 
 
 def test_non_cpu_tensor_without_kernel_raises():
     """A tensor that is neither on the CPU nor on a CUDA device has no
     kernel and no fallback."""
-    q = torch.empty((2, 4, 64), device="meta")
-    pool = torch.empty((3, BS, 4, 64), device="meta")
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    q = meta(2, 4, 64)
     with pytest.raises(ValueError):
-        ops.paged_decode_attention(
-            q, pool, torch.empty((2, 2), dtype=torch.int32, device="meta"),
-            torch.empty((2,), dtype=torch.int32, device="meta"))
-    assert ops.launches["paged_decode_attention"] == 0
+        ops.paged_decode_attention(q, meta(3, BS, 4, 64),
+                                   meta(2, 2, dtype=torch.int32),
+                                   meta(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, meta(2, 128, 2, 64), meta(2, 128, 2, 64),
+                             meta(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ops.chunked_prefill_attention(meta(128, 4, 64), meta(128, 2, 64),
+                                      meta(128, 2, 64), 0)
+    assert set(ops.launches.values()) == {0}
