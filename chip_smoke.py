@@ -7,15 +7,19 @@
 Phases (each one that fails raises, so the script exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   and the nvcc build of the kernels from ``src/repro_torch/kernels/csrc``;
+   the nvcc build of the kernels from ``src/repro_torch/kernels/csrc``, and
+   ``cuobjdump -sass`` of the built libraries: the bf16 prefill kernels
+   (K1, K3) must issue tensor-core instructions (HMMA);
 2. kernels: the paged chunked-prefill (K3) and paged decode (K4) CUDA
    kernels against their plain PyTorch versions on the card, at the
-   paper-llama-13b, tinyllama-1.1b and qwen2-0.5b widths, in float32
-   (tolerance 2e-5, TF32 off) and bfloat16 (2e-2), with ``start`` mid-block,
-   a chunk length off the kernel's row tile and a poisoned scratch block 0,
-   the llama-13b bf16 case timed with CUDA events beside its plain version
-   and its bound; then small edge cases (block sizes 8-128, group sizes
-   1-16, one-row chunks, rows past the table's end);
+   paper-llama-13b, stablelm-12b (head dim 160), tinyllama-1.1b and
+   qwen2-0.5b widths, in float32 (tolerance 2e-5, TF32 off) and bfloat16
+   (2e-2), with ``start`` mid-block, a chunk length off the kernel's row
+   tile and a poisoned scratch block 0, the llama-13b and stablelm-12b
+   bf16 cases timed with CUDA events beside their plain versions and their
+   bounds, warm (the same inputs again) and cold (L2 flushed before each
+   run); then small edge cases (block sizes 8-128, group sizes 1-16, head
+   dims 64-160, one-row chunks, rows past the table's end);
 3. parity: tinyllama-1.1b ``.reduced()`` in float32 on the paged pool
    serves the quickstart workload; greedy tokens on the card (kernels) must
    equal those on the CPU (plain versions);
@@ -26,18 +30,23 @@ Phases (each one that fails raises, so the script exits non-zero):
 5. dense-row kernels at their own entry points (no serving path calls
    them, as in the JAX package): the chunked-prefill (K1) and decode (K2)
    CUDA kernels against their plain versions at every shape of
-   ``tests/test_kernels.py`` (head dims 64-256, groups 1-16) in float32
-   (2e-5, TF32 off) and bfloat16 (2e-2), each also with a stale tail
-   poisoned with +-99 past every row's visible keys, and at the
-   paper-llama-13b width (bf16, K1: C = 256 at start 768 in a row of
-   2048; K2: 4 rows of 2048), timed beside their plain versions, their
-   bounds and one ``scaled_dot_product_attention`` call each;
+   ``tests/test_kernels.py`` (head dims 64-256, groups 1-16) and at head
+   dim 160, in float32 (2e-5, TF32 off) and bfloat16 (2e-2), each also
+   with a stale tail poisoned with +-99 past every row's visible keys, and
+   at the paper-llama-13b and stablelm-12b widths (bf16, K1: C = 256 at
+   start 768 in a row of 2048; K2: 4 rows of 2048), timed warm and cold
+   beside their plain versions, their bounds and one
+   ``scaled_dot_product_attention`` call each;
 6. ``forward_batched`` at full width: phase 4's weights, 4 prompts of 1024
    tokens, a batched prefill and 16 batched greedy decode steps on
    4 x 2048 cache rows, timed with CUDA events; every logit finite;
 7. the paper's Fig. 6 claim: paper-llama-13b cut to 4 layers, float32,
    TF32 off: the last logits of a prefill in chunks of 384, 256 and 384
-   equal the full prefill's within rtol = atol = 5e-4.
+   equal the full prefill's within rtol = atol = 5e-4;
+8. stablelm-12b (head dim 160, g 4) in bfloat16 at full width and depth,
+   random weights from a seed, behind ``Server(policy="sarathi",
+   paged=True)`` on phase 4's workload: every logit finite, launch counts
+   40 layers x the steps that need each kernel.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -45,6 +54,7 @@ program beside it, the script exits non-zero and prints no result.
 """
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -80,14 +90,24 @@ def log(msg=""):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps=25, warm=3):
+def cuda_ms(fn, reps=25, warm=3, cold=False):
     """Median milliseconds of ``fn()`` over ``reps`` runs, each timed with
-    CUDA events after ``warm`` untimed runs."""
+    CUDA events after ``warm`` untimed runs.  Before each run (outside the
+    timed span) the device spins for ~0.5 ms, so that the host has queued
+    the run before the device reaches it and the span holds device time
+    only, not the host's launch latency.  ``cold``: a 256 MiB buffer is
+    also zeroed there, so that the run finds none of its inputs in the
+    50 MB L2."""
     import torch
+    flush = (torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+             if cold else None)
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
+        if cold:
+            flush.zero_()
+        torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -96,6 +116,55 @@ def cuda_ms(fn, reps=25, warm=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def timings(kern, plain, library=None):
+    """Warm and cold medians of a kernel, its plain version and (where
+    there is one) its library call."""
+    row = {}
+    for key, fn in (("ms", kern), ("plain_ms", plain),
+                    ("library_ms", library)):
+        if fn is not None:
+            row[key] = cuda_ms(fn)
+            row[key + "_cold"] = cuda_ms(fn, cold=True)
+    return row
+
+
+def timing_text(row):
+    """The timed numbers of a row, for the log."""
+    text = (f"  kernel {row['ms']:.4f} ms (cold {row['ms_cold']:.4f})  "
+            f"plain {row['plain_ms']:.4f} (cold {row['plain_ms_cold']:.4f})"
+            f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    if "library_ms" in row:
+        text += (f"  sdpa {row['library_ms']:.4f} (cold "
+                 f"{row['library_ms_cold']:.4f})")
+    return text
+
+
+def split_sweep(kern):
+    """Warm ms of a decode kernel with its split forced to 1, 2, 4 and 8
+    (the wrapper's rule replaced for these runs), for the log: the rule's
+    choice against its neighbours."""
+    from repro_torch.kernels import launch
+    rule = launch.decode_split
+    times = []
+    try:
+        for n in (1, 2, 4, 8):
+            launch.decode_split = (lambda cap, nb, sms, n=n:
+                                   (n, -(-cap // n)))
+            times.append(f"{n}: {cuda_ms(kern):.4f}")
+    finally:
+        launch.decode_split = rule
+    return "    forced n_split " + ", ".join(times) + " ms"
+
+
+def n_split(capacity, n_blocks):
+    """The decode kernels' split of rows of ``capacity`` keys over
+    ``n_blocks`` = B x nk blocks on this card."""
+    import torch
+    from repro_torch.kernels import launch
+    return launch.decode_split(capacity, n_blocks,
+                               launch.sm_count(torch.device("cuda")))[0]
 
 
 def max_err(got, want, tol):
@@ -118,6 +187,7 @@ def max_err(got, want, tol):
 # --------------------------------------------------------------------------
 SHAPES = {  # name: (n_q_heads, n_kv_heads, head_dim)
     "paper-llama-13b": (40, 40, 128),
+    "stablelm-12b": (32, 8, 160),
     "tinyllama-1.1b": (32, 4, 64),
     "qwen2-0.5b": (14, 2, 64),
 }
@@ -198,14 +268,14 @@ def kernel_case(arch, dtype_name, timed):
                             >= n_ops / PEAK_OPS[dtype_name]
                             else "operations")}
         if timed:
-            row["ms"] = cuda_ms(kern)
-            row["plain_ms"] = cuda_ms(plain)
+            row.update(timings(kern, plain))
         out[name] = row
+        split = (f"  n_split {n_split(M * BS, D * nk)}"
+                 if name == "paged_decode_attention" else "")
         log(f"  {name:33s} {arch:16s} {dtype_name:9s} max_abs_err "
-            f"{err:.3e}" + (f"  kernel {row['ms']:.4f} ms  plain "
-                            f"{row['plain_ms']:.4f} ms  bound "
-                            f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
-                            if timed else ""))
+            f"{err:.3e}" + (timing_text(row) if timed else "") + split)
+        if timed and split:
+            log(split_sweep(kern))
     return out
 
 
@@ -222,7 +292,8 @@ def edge_cases():
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for g, hd, bs in ((1, 128, 8), (2, 64, 32), (4, 128, 16),
-                          (7, 64, 8), (16, 64, 16), (8, 128, 128)):
+                          (7, 64, 8), (16, 64, 16), (8, 128, 128),
+                          (1, 160, 8), (4, 160, 16), (16, 160, 32)):
             nk, M, N = 2, 6, 20
             pool = torch.from_numpy(rng.standard_normal(
                 (N, bs, 2 * nk, hd)).astype(np.float32)).to("cuda", dtype)
@@ -251,6 +322,66 @@ def edge_cases():
     log(f"  {n} edge cases agree (fp32 2e-5, bf16 2e-2)")
 
 
+def kernel_label(mangled):
+    """``decode_kernel<bf16,128,4>`` for a kernel's mangled name."""
+    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+        at = m.end()
+        name = mangled[at:at + int(m.group(1))]
+        rest = mangled[at + len(name):]
+        if name.endswith("_kernel") and rest.startswith("I"):
+            args = rest[1:rest.index("EEv")] + "E"
+            return name + "<" + ",".join(
+                "bf16" if t.group(0)[0] == "1" else
+                "f32" if t.group(0) == "f" else t.group(1)
+                for t in re.finditer(r"13__nv_bfloat16|Li(\d+)E|f",
+                                     args)) + ">"
+    return mangled
+
+
+def ptxas_lines(report):
+    """(kernel, registers, spilled bytes) for each kernel in nvcc's
+    ``-Xptxas -v`` report."""
+    out, kernel, spill = [], None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = kernel_label(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m.group(1)), spill))
+    return out
+
+
+def tensor_core_check():
+    """``cuobjdump -sass`` of the built libraries: HMMA instructions per
+    bf16 prefill kernel (K1, K3); raises where one has none."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    counts = {}
+    for name in build.SIGNATURES:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build._target(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                fn = line.split("Function : ")[1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                counts[fn] += 1
+    mma = {f: n for f, n in counts.items() if "prefill_mma_kernel" in f}
+    for f in sorted(mma):
+        log(f"  {kernel_label(f)}: {mma[f]} HMMA")
+    if len(mma) != 7 or not all(mma.values()):   # K1: 4 head dims, K3: 3
+        raise AssertionError(f"bf16 prefill kernels without HMMA: {mma}")
+    others = sum(n for f, n in counts.items() if f not in mma)
+    log(f"  {len(counts) - len(mma)} other kernels: {others} HMMA")
+
+
 # --------------------------------------------------------------------------
 # phase 3: reduced model, card == CPU
 # --------------------------------------------------------------------------
@@ -272,9 +403,9 @@ def quickstart_tokens(device, params, cfg):
 
 
 # --------------------------------------------------------------------------
-# phase 4: full width through the Server
+# phases 4 and 8: full width through the Server
 # --------------------------------------------------------------------------
-def full_width(profile=False):
+def full_width(arch="paper-llama-13b", profile=False):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -283,7 +414,7 @@ def full_width(profile=False):
     from repro_torch.scheduler import Request
     from repro_torch.serving import Server
 
-    cfg = get_config("paper-llama-13b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, dtype=torch.bfloat16)
     srv = Server(cfg, params, policy="sarathi", chunk_size=C_MAIN,
@@ -369,13 +500,16 @@ def full_width(profile=False):
 K1_SHAPES = [  # tests/test_kernels.py: C, S, nq, nk, hd, start
     (128, 256, 4, 4, 64, 0), (128, 512, 8, 2, 64, 128),
     (256, 1024, 16, 8, 128, 640), (128, 128, 4, 1, 256, 0),
-    (128, 384, 14, 2, 64, 200)]
+    (128, 384, 14, 2, 64, 200),
+    (128, 384, 32, 8, 160, 200), (128, 256, 16, 1, 160, 0)]   # head dim 160
 K2_SHAPES = [  # tests/test_kernels.py: B, S, nq, nk, hd
     (4, 512, 8, 2, 64), (2, 256, 4, 4, 128), (3, 384, 16, 1, 64),
-    (1, 128, 14, 2, 64)]
-# full width: paper-llama-13b heads, a 256-row chunk at 768 / 4 decodes
-K1_FULL = (256, 2048, 40, 40, 128, 768)
-K2_FULL = (4, 2048, 40, 40, 128)
+    (1, 128, 14, 2, 64),
+    (3, 512, 32, 8, 160), (2, 256, 16, 1, 160)]   # head dim 160
+# full width (timed): paper-llama-13b heads (the kernels line's row), then
+# stablelm-12b's; a 256-row chunk at 768 / 4 decodes
+K1_FULL = [(256, 2048, 40, 40, 128, 768), (256, 2048, 32, 8, 160, 768)]
+K2_FULL = [(4, 2048, 40, 40, 128), (4, 2048, 32, 8, 160)]
 
 
 def dense_case(name, shape, dtype_name, gen, rng, timed):
@@ -458,13 +592,13 @@ def dense_case(name, shape, dtype_name, gen, rng, timed):
                         >= n_ops / PEAK_OPS[dtype_name] else "operations")}
     if timed:
         max_err(library(), want, tol)          # the yardstick computes it
-        row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                   library_ms=cuda_ms(library))
+        row.update(timings(kern, plain, library))
+    split = (f"  n_split {n_split(S, B * nk)}"
+             if name == "decode_attention" else "")
     log(f"  {name:26s} {str(shape):30s} {dtype_name:9s} max_abs_err "
-        f"{err:.3e}" + (f"  kernel {row['ms']:.4f} ms  plain "
-                        f"{row['plain_ms']:.4f} ms  bound "
-                        f"{row['bound_ms']:.4f} ms ({row['bound_by']})  "
-                        f"sdpa {row['library_ms']:.4f} ms" if timed else ""))
+        f"{err:.3e}" + (timing_text(row) if timed else "") + split)
+    if timed and split:
+        log(split_sweep(kern))
     return row
 
 
@@ -483,10 +617,10 @@ def dense_kernels():
             ("chunked_prefill_attention", K1_SHAPES, K1_FULL),
             ("decode_attention", K2_SHAPES, K2_FULL)):
         for dt in ("float32", "bfloat16"):
-            for shape in shapes + [full]:
-                timed = shape == full and dt == "bfloat16"
+            for shape in shapes + full:
+                timed = shape in full and dt == "bfloat16"
                 row = dense_case(name, shape, dt, gen, rng, timed)
-                if timed:
+                if shape == full[0] and timed:
                     rows[name] = row
     launches = dict(ops.launches)
     for name in rows:
@@ -662,9 +796,10 @@ def main() -> int:
     reports = build.build_all()
     log(f"kernels built in {time.perf_counter() - t:.1f} s")
     for name, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for kernel, regs, spill in ptxas_lines(report):
+            log(f"  {name}: {kernel:32s} {regs:3d} registers, {spill} bytes "
+                "spilled")
+    tensor_core_check()
 
     if "--profile" in sys.argv[1:]:
         from repro_torch.configs import get_config
@@ -682,9 +817,10 @@ def main() -> int:
     main_row = None
     for arch in SHAPES:
         for dt in ("float32", "bfloat16"):
-            timed = arch == "paper-llama-13b" and dt == "bfloat16"
+            timed = (arch in ("paper-llama-13b", "stablelm-12b")
+                     and dt == "bfloat16")
             rows = kernel_case(arch, dt, timed)
-            if timed:
+            if timed and arch == "paper-llama-13b":
                 main_row = rows
             torch.cuda.empty_cache()
     edge_cases()
@@ -721,6 +857,12 @@ def main() -> int:
     log("== 7. Fig. 6: chunked == full prefill, paper-llama-13b x 4 layers, "
         "float32")
     fig6_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== 8. stablelm-12b bf16 (head dim 160), Server(sarathi, paged), "
+        "full width")
+    full_width("stablelm-12b")
 
     kernels = []
     for name in REPLACES:
@@ -732,7 +874,10 @@ def main() -> int:
                         "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r.get("library_ms")})
+                        "library_ms": r.get("library_ms"),
+                        "ms_cold": r["ms_cold"],
+                        "plain_ms_cold": r["plain_ms_cold"],
+                        "library_ms_cold": r.get("library_ms_cold")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

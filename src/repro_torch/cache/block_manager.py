@@ -11,9 +11,9 @@ Prefix sharing (copy-on-write)
 ------------------------------
 Every allocated physical block carries a **reference count**: normally 1
 (one table entry), but a block may be mapped into several requests' tables
-at once (:meth:`share` — prefix-cache hits) and/or pinned by the
-:class:`~repro_torch.cache.prefix_cache.PrefixCache` index.  The discipline is
-vLLM's:
+at once (:meth:`share` — prefix-cache hits) and/or pinned by a prefix
+cache index (the JAX package's ``PrefixCache``; the port has none yet).
+The discipline is vLLM's:
 
 * a FULL block is immutable — sharing it is a pure refcount increment;
 * a request about to WRITE into a block it does not exclusively own must

@@ -5,9 +5,11 @@ described by a single :class:`ModelConfig`.  The config is the source of truth
 for:
 
 * model construction (``repro_torch.models.registry.build_model``),
-* parameter / KV-cache byte accounting (``repro_torch.sim.cost_model``),
-* sharding policy selection (``repro_torch.launch.shardings``),
+* the KV-cache geometry of the engine and the kernels,
 * the reduced "smoke" variants used by CPU tests.
+
+(The JAX package's cost model and sharding policy read it too; the port
+has neither yet.)
 """
 from __future__ import annotations
 

@@ -1,17 +1,20 @@
 """``--arch <id>`` lookup for the configurations the port can build.
 
-Only the dense full-attention stacks are listed: the other families of
-the JAX package need mixers the port does not have yet (ROADMAP Queue 1,
-"the other mixers")."""
+Every ``family="dense"`` architecture of the JAX package's registry is
+listed; the other families need mixers the port does not have yet
+(ROADMAP Queue 1, "the other mixers")."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs import paper_models, qwen2_0_5b, tinyllama_1_1b
+from repro_torch.configs import (granite_8b, paper_models, qwen2_0_5b,
+                                 stablelm_12b, tinyllama_1_1b)
 
 # The assigned architectures the port supports, keyed by their --arch ids.
 ASSIGNED: Dict[str, Callable[[], ModelConfig]] = {
+    "stablelm-12b": stablelm_12b.config,
+    "granite-8b": granite_8b.config,
     "qwen2-0.5b": qwen2_0_5b.config,
     "tinyllama-1.1b": tinyllama_1_1b.config,
 }

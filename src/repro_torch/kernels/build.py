@@ -30,19 +30,21 @@ _F = ctypes.c_float
 # C signatures of the entry points, by library
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "paged_attention": {
-        # dtype, hd, q, pool, tables, ctx, out, B, nq, nk, bs, M, scale,
-        # stream
+        # dtype, hd, q, pool, tables, ctx, out, ws, B, nq, nk, bs, M,
+        # n_split, split_len, scale, stream
         "paged_decode_attention":
-            [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+            [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+             _P],
         # dtype, hd, q, pool, table, start, out, C, nq, nk, bs, M, scale,
         # stream
         "paged_chunked_prefill_attention":
             [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
     "dense_attention": {
-        # dtype, hd, q, k, v, ctx, out, B, S, nq, nk, scale, stream
+        # dtype, hd, q, k, v, ctx, out, ws, B, S, nq, nk, n_split,
+        # split_len, scale, stream
         "decode_attention":
-            [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+            [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
         # dtype, hd, q, k, v, start, out, C, S, nq, nk, scale, stream
         "chunked_prefill_attention":
             [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

@@ -15,8 +15,9 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.launch import (check_inputs, dtype_code, launches,
-                                        launch_status)
+from repro_torch.kernels.launch import (check_inputs, decode_workspace,
+                                        dtype_code, launches, launch_status,
+                                        sm_count)
 
 
 def decode_attention(q, k, v, ctx, *, bk: int = 128):
@@ -37,11 +38,13 @@ def decode_attention(q, k, v, ctx, *, bk: int = 128):
     out = torch.empty_like(q)
     if B == 0:
         return out
+    n_split, split_len, ws = decode_workspace(q, nk, S, sm_count(q.device))
     from repro_torch.kernels import build
     lib = build.library("dense_attention")
     rc = lib.decode_attention(
         dtype_code(q), hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        ctx.data_ptr(), out.data_ptr(), B, S, nq, nk, 1.0 / math.sqrt(hd),
+        ctx.data_ptr(), out.data_ptr(), ws.data_ptr(), B, S, nq, nk, n_split,
+        split_len, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream)
     launch_status("decode_attention", rc)
     launches["decode_attention"] += 1

@@ -16,7 +16,7 @@ from repro.kernels import (  # noqa: E402
     paged_decode_attention as jax_pda)
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import launch, ops  # noqa: E402
 
 # fp32: same algorithm, different summation order; bf16: one rounding of
 # the PV probabilities and of the output (the JAX suite's own tiers)
@@ -52,7 +52,7 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 160])
 @pytest.mark.parametrize("g", [1, 2, 4, 7])
 def test_paged_decode_plain_matches_pallas(g, hd, dtype):
     rng = np.random.default_rng(g * 1000 + hd)
@@ -72,7 +72,7 @@ def test_paged_decode_plain_matches_pallas(g, hd, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 160])
 @pytest.mark.parametrize("g", [1, 2, 4, 7])
 def test_paged_chunked_prefill_plain_matches_pallas(g, hd, dtype):
     rng = np.random.default_rng(g * 1000 + hd + 1)
@@ -146,6 +146,7 @@ def test_plain_versions_ignore_poisoned_scratch_tail():
     (256, 1024, 16, 8, 128, 640),   # GQA g=2, deep prefix
     (128, 128, 4, 1, 256, 0),       # MQA, gemma-style head_dim
     (128, 384, 14, 2, 64, 200),     # qwen2 head config (start mid-block)
+    (128, 256, 8, 2, 160, 64),      # stablelm head_dim, GQA g=4
 ])
 def test_chunked_prefill_plain_matches_pallas(C, S, nq, nk, hd, start,
                                               dtype):
@@ -166,6 +167,7 @@ def test_chunked_prefill_plain_matches_pallas(C, S, nq, nk, hd, start,
     (2, 256, 4, 4, 128),
     (3, 384, 16, 1, 64),
     (1, 128, 14, 2, 64),
+    (2, 256, 8, 2, 160),            # stablelm head_dim, GQA g=4
 ])
 def test_decode_plain_matches_pallas(B, S, nq, nk, hd, dtype):
     rng = np.random.default_rng(B * S)
@@ -284,3 +286,51 @@ def test_non_cpu_tensor_without_kernel_raises():
         ops.chunked_prefill_attention(meta(128, 4, 64), meta(128, 2, 64),
                                       meta(128, 2, 64), 0)
     assert set(ops.launches.values()) == {0}
+
+
+# --------------------------------------------------------------------------
+# what the CUDA wrappers take, and the decode kernels' split
+# --------------------------------------------------------------------------
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("name", sorted(launch.KERNELS))
+def test_check_inputs_takes_head_dim_160(name):
+    """Every kernel is built for head dim 160 (stablelm-12b): the checks
+    pass the head dim and stop only at the device (no card here)."""
+    assert 160 in launch.KERNELS[name][0]
+    with pytest.raises(ValueError, match="q on meta"):
+        launch.check_inputs(name, _meta(3, 32, 160), 8, kv={}, ints={})
+
+
+@pytest.mark.parametrize("name", sorted(launch.KERNELS))
+@pytest.mark.parametrize("hd", [96, 192])
+def test_check_inputs_rejects_unbuilt_head_dim(name, hd):
+    with pytest.raises(ValueError, match=f"head_dim {hd} not in"):
+        launch.check_inputs(name, _meta(3, 32, hd), 8, kv={}, ints={})
+
+
+@pytest.mark.parametrize("capacity", [1, 127, 129, 2048, 32768])
+@pytest.mark.parametrize("n_blocks", [1, 56, 280, 10_000])
+def test_decode_split_covers_every_key(capacity, n_blocks, sms=132):
+    n_split, split_len = launch.decode_split(capacity, n_blocks, sms)
+    assert n_split >= 1 and split_len >= 1
+    assert n_split * split_len >= capacity              # every key
+    assert (n_split - 1) * split_len < capacity         # none empty
+    assert split_len % launch.SPLIT_QUANTUM == 0        # whole tiles
+    if n_blocks >= launch.WAVES * launch.RESIDENT * sms:
+        assert n_split == 1                             # enough blocks
+
+
+def test_decode_workspace_reads_no_tensor():
+    """The split comes from shapes alone: on meta tensors (which hold no
+    values to read) it plans the call and sizes the fp32 workspace."""
+    q = _meta(7, 40, 128)
+    n_split, split_len, ws = launch.decode_workspace(q, 40, 2048, sms=132)
+    assert (n_split, split_len) == launch.decode_split(2048, 7 * 40, 132)
+    assert n_split > 1
+    assert ws.device.type == "meta" and ws.dtype == torch.float32
+    assert ws.numel() == 7 * 40 * n_split * (128 + 2)
+    _, _, ws = launch.decode_workspace(_meta(7, 40, 128), 40, 128, sms=132)
+    assert ws.numel() == 0                              # one split: none
