@@ -11,9 +11,9 @@ Prefix sharing (copy-on-write)
 ------------------------------
 Every allocated physical block carries a **reference count**: normally 1
 (one table entry), but a block may be mapped into several requests' tables
-at once (:meth:`share` — prefix-cache hits) and/or pinned by a prefix
-cache index (the JAX package's ``PrefixCache``; the port has none yet).
-The discipline is vLLM's:
+at once (:meth:`share` — prefix-cache hits) and/or pinned by the
+:class:`~repro_torch.cache.prefix_cache.PrefixCache` index.  The
+discipline is vLLM's:
 
 * a FULL block is immutable — sharing it is a pure refcount increment;
 * a request about to WRITE into a block it does not exclusively own must
@@ -185,15 +185,23 @@ class BlockManager:
         return self.can_allocate_blocks(self.blocks_for_tokens(n_tokens),
                                         watermark=watermark)
 
-    def can_allocate_blocks(self, n: int, *, watermark: bool = True) -> bool:
+    def can_allocate_blocks(self, n: int, *, watermark: bool = True,
+                            hit_blocks: Sequence[int] = ()) -> bool:
         """Block-granular :meth:`can_allocate` — what a prefix-aware
         admission gate charges after subtracting its hit blocks.  Blocks
         already promised to admitted-but-still-prefilling requests
         (:meth:`reserve`) are NOT available: without this, two oversized
         admissions passing the same instantaneous free-list check can
-        wedge a small pool once their lazy chunk allocations collide."""
+        wedge a small pool once their lazy chunk allocations collide.
+
+        ``hit_blocks`` is the prefix hit that the same admission is about
+        to :meth:`share`.  Those of its blocks that only the cache holds
+        are reclaimable now, but the share pins them, so they do not count
+        here.  (The JAX package's gate counts them, and then ``ensure``
+        can find no block: ROADMAP Queue 3.)"""
         floor = self.watermark_blocks if watermark else 0
-        return self.n_free + self.n_reclaimable - self.n_reserved \
+        pinned = sum(1 for b in hit_blocks if self.refcount(b) == 1)
+        return self.n_free + self.n_reclaimable - pinned - self.n_reserved \
             - int(n) >= floor
 
     def can_append(self, req_id: int, n_tokens: int) -> bool:

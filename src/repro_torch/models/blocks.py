@@ -137,7 +137,8 @@ def _attn_packed_paged(cfg, p, q, k, v, pos, cache, pk: PackedBatch):
 def attn_packed(cfg, p, x, cache, pk: PackedBatch):
     """x [T, d] packed hybrid batch -> (out [T, d], cache updated in
     place).  Full attention only: sliding windows are refused by
-    ``stack.layer_kinds``."""
+    ``stack.layer_kinds``.  Neither layout reads a device value on the
+    host, so the engine's CUDA graphs capture both."""
     C, D = pk.num_chunk, pk.num_decode
     q, k, v = _qkv(cfg, p, x)
     pos = pk.positions()
@@ -155,10 +156,10 @@ def attn_packed(cfg, p, x, cache, pk: PackedBatch):
     if C:
         cm.write_kv_slot(ck, k[:C], pk.chunk_slot, pk.chunk_start)
         cm.write_kv_slot(cv, v[:C], pk.chunk_slot, pk.chunk_start)
-        slot = int(pk.chunk_slot)
+        slot = pk.chunk_slot.long().reshape(1)
         mask = cm.causal_cache_mask(pos[None, :C], S)
-        outs.append(cm.gqa_attention(q[None, :C], ck[slot:slot + 1],
-                                     cv[slot:slot + 1], mask)[0])
+        outs.append(cm.gqa_attention(q[None, :C], ck.index_select(0, slot),
+                                     cv.index_select(0, slot), mask)[0])
     if D:
         cm.write_kv_scatter(ck, k[C:], pk.decode_slots, pk.decode_ctx)
         cm.write_kv_scatter(cv, v[C:], pk.decode_slots, pk.decode_ctx)

@@ -181,16 +181,24 @@ def write_kv_rows(cache, new, start):
 
 def write_kv_slot(cache, new, slot, start):
     """Write one sequence's C new tokens into cache row ``slot`` at
-    ``start``, in place.
+    ``start``, in place, with device-side indices only (no host read, so a
+    CUDA graph can capture it).
 
-    cache [R, S, nk, hd], new [C, nk, hd]; slot/start ints (or 0-dim
-    tensors).  Rows landing past the cache length are DROPPED: a padded
-    chunk whose static width spills past max_len must not clamp into live
-    positions (the JAX package's ``write_kv_slot`` semantics)."""
-    S = cache.shape[1]
-    start = int(start)
-    n = max(0, min(new.shape[0], S - start))
-    cache[int(slot), start:start + n] = new[:n]
+    cache [R, S, nk, hd], new [C, nk, hd] with C <= S; slot/start ints or
+    0-dim tensors.  Rows landing past the cache length are DROPPED: a
+    padded chunk whose static width spills past max_len must not clamp
+    into live positions (the JAX package's ``write_kv_slot`` semantics).
+    A dropped row at ``start + i >= S`` writes back, unchanged, the old
+    value at ``start + i - C``: those positions lie in ``[S - C, start)``,
+    which no kept row writes, so every index is distinct."""
+    S, C = cache.shape[1], new.shape[0]
+    slot = torch.as_tensor(slot, device=cache.device).long()
+    pos = torch.as_tensor(start, device=cache.device).long() + torch.arange(
+        C, device=cache.device)
+    keep = pos < S
+    idx = torch.where(keep, pos, pos - C)
+    cache[slot, idx] = torch.where(keep[:, None, None], new,
+                                   cache[slot, idx])
     return cache
 
 

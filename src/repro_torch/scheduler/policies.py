@@ -12,8 +12,8 @@
 
 All policies emit :class:`repro_torch.core.engine.IterationPlan`s and are
 driven by ``repro_torch.serving.server.Server`` against the real engine.
-(The token-budget ``sarathi_serve`` policy of the JAX package is not
-ported yet: ROADMAP Queue 1.)
+The token-budget ``sarathi_serve`` policy is in
+:mod:`repro_torch.scheduler.budget`.
 """
 from __future__ import annotations
 
@@ -28,7 +28,10 @@ class Scheduler:
     """Base: FCFS admission into a fixed number of engine slots.
 
     ``block_manager`` (optional, shared with a paged engine) makes the
-    scheduler release a finished request's KV blocks on retirement."""
+    scheduler release a finished request's KV blocks on retirement; the
+    block-AWARE composition logic (admission gating, decode reservation,
+    preemption under memory pressure) lives in the policies that opt in
+    (``repro_torch.scheduler.budget.SarathiServeScheduler``)."""
 
     def __init__(self, *, n_slots: int, max_decodes: int, chunk_size: int,
                  block_manager=None):
@@ -179,7 +182,3 @@ POLICIES = {
     "orca": OrcaScheduler,
     "request_level": RequestLevelScheduler,
 }
-
-# policies whose engine compiles with C = chunk_size (the others submit
-# whole prompts as one chunk)
-CHUNKED_POLICIES = frozenset({"sarathi"})

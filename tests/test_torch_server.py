@@ -2,7 +2,8 @@
 quickstart workload (``examples/quickstart.py``) under each ported policy
 must give the same per-iteration composition and the same greedy tokens,
 from the same weights.  Inside the port, the paged pool must replay the
-dense cache exactly."""
+dense cache exactly, and the engine's static step inputs must carry
+nothing of one step into the next."""
 import numpy as np
 import pytest
 
@@ -11,6 +12,10 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from conftest import cached_model  # noqa: E402
+from repro.core import ChunkWork as JaxChunkWork  # noqa: E402
+from repro.core import DecodeWork as JaxDecodeWork  # noqa: E402
+from repro.core import Engine as JaxEngine  # noqa: E402
+from repro.core import IterationPlan as JaxIterationPlan  # noqa: E402
 from repro.scheduler import Request as JaxRequest  # noqa: E402
 from repro.serving import Server as JaxServer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -51,11 +56,17 @@ def _serve(server_cls, request_cls, cfg, params, **kw):
     return comp, [res.outputs[r.req_id] for r in reqs]
 
 
-@pytest.mark.parametrize("policy", ["sarathi", "orca", "request_level"])
-def test_server_matches_jax(policy):
+def _jax_and_port_models():
     cfg_j, _, params_j = cached_model("tinyllama-1.1b")
     cfg = get_config("tinyllama-1.1b").reduced()
     params = from_jax_tree(cfg, jax.device_get(params_j), device="cpu")
+    return cfg_j, params_j, cfg, params
+
+
+@pytest.mark.parametrize("policy", ["sarathi", "orca", "request_level",
+                                    "sarathi_serve"])
+def test_server_matches_jax(policy):
+    cfg_j, params_j, cfg, params = _jax_and_port_models()
     want = _serve(JaxServer, JaxRequest, cfg_j, params_j, policy=policy)
     dense = _serve(Server, Request, cfg, params, policy=policy,
                    device="cpu")
@@ -63,6 +74,70 @@ def test_server_matches_jax(policy):
                    device="cpu", paged=True, block_size=16)
     assert dense == want
     assert paged == dense
+
+
+@pytest.mark.parametrize("token_budget", [CHUNK // 2, 2 * CHUNK + 3])
+def test_token_budget_matches_jax(token_budget):
+    """sarathi_serve under a token budget below the chunk (chunks shrink)
+    and above it (multi-chunk plans run as consecutive sub-steps): the
+    same composition and greedy tokens as the JAX Server, dense and
+    paged."""
+    cfg_j, params_j, cfg, params = _jax_and_port_models()
+    kw = dict(policy="sarathi_serve", token_budget=token_budget)
+    want = _serve(JaxServer, JaxRequest, cfg_j, params_j, **kw)
+    dense = _serve(Server, Request, cfg, params, device="cpu", **kw)
+    paged = _serve(Server, Request, cfg, params, device="cpu", paged=True,
+                   block_size=16, **kw)
+    assert dense == want
+    assert paged == dense
+    if token_budget > CHUNK:
+        assert max(n for n, _ in want[0]) > CHUNK      # multi-chunk plans
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_static_step_inputs_leak_nothing_between_steps(paged):
+    """Plans that shrink from 3 decode lanes to 1, then end a prompt with
+    a shorter final chunk, then decode the requests whose lanes went
+    unused: the port engine's static step inputs must give the JAX
+    engine's tokens on the same plans, so no field of an earlier step (a
+    stale lane, table entry or chunk token, which would write into a live
+    block) survives."""
+    cfg_j, params_j, cfg, params = _jax_and_port_models()
+    rng = np.random.default_rng(5)
+    a, b, c = (rng.integers(0, cfg.vocab_size, 8).tolist() for _ in "abc")
+    d = rng.integers(0, cfg.vocab_size, 13).tolist()
+    kw = dict(n_slots=4, max_len=64, chunk_size=8, decode_slots=3,
+              paged=paged, block_size=8)
+    engines = [(JaxEngine(cfg_j, params_j, **kw), JaxChunkWork,
+                JaxDecodeWork, JaxIterationPlan),
+               (Engine(cfg, params, device="cpu", **kw), ChunkWork,
+                DecodeWork, IterationPlan)]
+    for eng, *_ in engines:
+        for rid in range(4):
+            eng.add_request(rid)
+    last = {}                       # req -> (last token, ctx), from JAX
+
+    def plans(cw, dw, ip):
+        def dec(*rids):
+            return [dw(r, *last[r]) for r in rids]
+        return [lambda: ip(chunk=cw(0, a, 0, True)),
+                lambda: ip(chunk=cw(1, b, 0, True), decodes=dec(0)),
+                lambda: ip(chunk=cw(2, c, 0, True), decodes=dec(0, 1)),
+                lambda: ip(chunk=cw(3, d[:8], 0, False),
+                           decodes=dec(0, 1, 2)),
+                lambda: ip(decodes=dec(0)),
+                lambda: ip(chunk=cw(3, d[8:], 8, True), decodes=dec(0)),
+                lambda: ip(decodes=dec(1, 2, 3))]
+
+    steps = zip(*(plans(*e[1:]) for e in engines))
+    for step, (jax_plan, port_plan) in enumerate(steps):
+        want = engines[0][0].execute(jax_plan())
+        got = engines[1][0].execute(port_plan())
+        assert got == want, f"step {step}"
+        for rid, tok in want.items():
+            ctx = last[rid][1] + 1 if rid in last else \
+                (len(d) if rid == 3 else 8)
+            last[rid] = (tok, ctx)
 
 
 def test_paged_engine_replays_dense_exactly():
@@ -112,9 +187,9 @@ def test_warmup_consumes_no_state():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tp=2), dict(pp=2), dict(sp=True), dict(prefix_cache=True),
-    dict(host_blocks=8), dict(preempt_mode="swap"), dict(token_budget=64),
-    dict(policy="sarathi_serve"),
+    dict(tp=2), dict(pp=2), dict(sp=True), dict(host_blocks=8),
+    dict(preempt_mode="swap"),
+    dict(policy="sarathi_serve", preempt_mode="hybrid"),
 ])
 def test_unported_arguments_raise(kw):
     cfg = get_config("tinyllama-1.1b").reduced()
