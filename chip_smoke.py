@@ -67,7 +67,24 @@ Phases (each one that fails raises, so the script exits non-zero):
    launch counts 40 layers x the packed sub-steps (a multi-chunk plan runs
    several); then the same workload with the cache off, and how many
    requests' tokens agree (reported: in bf16 a hit moves the chunk
-   boundaries).
+   boundaries);
+10. online serving at full width: paper-llama-13b in bfloat16 behind
+    ``OnlineServer(policy="sarathi_serve", paged=True)`` (main-path
+    geometry, both steps captured in warmup) serves 16 requests of the
+    paper's §5.3 shapes (``online_workload``: Zipf(0.4) lengths in
+    1024-2048, P:D 8:1) arriving as a Poisson process at 1 request/s:
+    every logit finite, every request its ``max_new_tokens``, launches 40
+    layers x the sub-steps that need each kernel; logs the TTFT / TBT /
+    queueing-delay table of the loop's clock, output tokens/s over that
+    clock and the host wall time of the run;
+11. the host swap tier at full width: the same model and engine geometry
+    on a 160-block pool with 256 host slots and ``preempt_mode="swap"``
+    serves 8 requests arriving at once (prompts of 512-1024 tokens, 128
+    new tokens each); every swapped block's bytes on every layer must come
+    back bit-equal, at least 2 swap-outs each resumed, and the greedy
+    tokens equal to those of the same workload on the default pool
+    (unpressured); the same pool under ``recompute`` runs beside it; logs
+    each direction's bytes and GB/s, and each run's wall time.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -475,6 +492,47 @@ class StepLog:
                 med(self.host), med(self.plan))
 
 
+def watch_logits(eng, cfg):
+    """Counts, on the device, the non-finite entries of every step's
+    logits (no sync a step).  Returns a function that raises if any was
+    found, and otherwise returns the number of logit rows seen."""
+    import torch
+    n_bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    n_rows = [0]
+
+    def check(chunk_logits, decode_logits):
+        for x in (chunk_logits, decode_logits):
+            if x is not None:
+                n_bad.add_((~torch.isfinite(x)).sum())
+                n_rows[0] += x.shape[0]
+                if x.shape[-1] != cfg.vocab_size:
+                    raise AssertionError(f"logits shape {tuple(x.shape)}")
+
+    def verdict():
+        if int(n_bad):
+            raise AssertionError(f"{int(n_bad)} non-finite logits")
+        return n_rows[0]
+
+    eng.on_logits = check
+    return verdict
+
+
+def expect_launches(cfg, launches, steps, sub_steps):
+    """The paged kernels' launches over a run must be ``cfg.n_layers`` x
+    the packed sub-steps that need each (K4: all, K3: those with a chunk),
+    the dense-row kernels' none (no serving path runs them, as in JAX).
+    Returns the sub-steps with a chunk."""
+    with_chunk = sum(n for c, _, n in steps.steps if c)
+    if sum(n for _, _, n in steps.steps) != sub_steps:
+        raise AssertionError("sub-steps miscounted")
+    want = {"paged_decode_attention": cfg.n_layers * sub_steps,
+            "paged_chunked_prefill_attention": cfg.n_layers * with_chunk,
+            "chunked_prefill_attention": 0, "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    return with_chunk
+
+
 # --------------------------------------------------------------------------
 # phase 3: reduced model, card == CPU, eager == captured
 # --------------------------------------------------------------------------
@@ -565,18 +623,7 @@ def serve_full_width(cfg, params, reqs, graphs=True, profile=False,
         f"{time.perf_counter() - t0:.1f} s; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
 
-    n_bad = torch.zeros((), dtype=torch.int64, device="cuda")
-    n_logits = [0]
-
-    def check(chunk_logits, decode_logits):
-        for x in (chunk_logits, decode_logits):
-            if x is not None:
-                n_bad.add_((~torch.isfinite(x)).sum())
-                n_logits[0] += x.shape[0]
-                if x.shape[-1] != cfg.vocab_size:
-                    raise AssertionError(f"logits shape {tuple(x.shape)}")
-
-    eng.on_logits = check
+    verdict = watch_logits(eng, cfg)
     steps = StepLog(eng, keep_logits=keep_logits, scheduler=srv.scheduler)
     ops.reset_launches()
     it0 = eng.iterations
@@ -589,28 +636,15 @@ def serve_full_width(cfg, params, reqs, graphs=True, profile=False,
     wall = time.perf_counter() - t
     launches = dict(ops.launches)
     sub_steps = eng.iterations - it0
-    with_chunk = sum(n for c, _, n in steps.steps if c)
-    if sum(n for _, _, n in steps.steps) != sub_steps:
-        raise AssertionError("sub-steps miscounted")
-
-    if int(n_bad):
-        raise AssertionError(f"{int(n_bad)} non-finite logits")
-    for r in reqs:
-        if len(res.outputs[r.req_id]) != r.max_new_tokens:
-            raise AssertionError(f"request {r.req_id}: "
-                                 f"{len(res.outputs[r.req_id])} tokens")
-    want = {"paged_decode_attention": cfg.n_layers * sub_steps,
-            "paged_chunked_prefill_attention": cfg.n_layers * with_chunk,
-            # no serving path runs the dense-row kernels, as in JAX
-            "chunked_prefill_attention": 0, "decode_attention": 0}
-    if launches != want:
-        raise AssertionError(f"launches {launches} != {want}")
+    n_logits = verdict()
+    with_chunk = expect_launches(cfg, launches, steps, sub_steps)
+    check_lengths(reqs, res.outputs)
     hybrid_ms, decode_ms, host_ms, plan_ms = steps.medians_ms()
     n_out = sum(len(v) for v in res.outputs.values())
     n_hybrid = sum(1 for c, _, _ in steps.steps if c)
     log(f"  {len(reqs)} requests: {len(res.iterations)} iterations "
         f"({n_hybrid} with a chunk, {len(res.iterations) - n_hybrid} "
-        f"decode-only) in {sub_steps} packed sub-steps, {n_logits[0]} logit "
+        f"decode-only) in {sub_steps} packed sub-steps, {n_logits} logit "
         f"rows all finite")
     log(f"  median hybrid step {hybrid_ms:.3f} ms, median decode-only step "
         f"{decode_ms:.3f} ms, median host time a sub-step {host_ms:.3f} ms, "
@@ -628,6 +662,15 @@ def serve_full_width(cfg, params, reqs, graphs=True, profile=False,
     gc.collect()                  # the engine's pool (a reference cycle)
     torch.cuda.empty_cache()
     return out
+
+
+def check_lengths(reqs, outputs):
+    """Every request got exactly its ``max_new_tokens``."""
+    for r in reqs:
+        if len(outputs[r.req_id]) != r.max_new_tokens:
+            raise AssertionError(f"request {r.req_id}: "
+                                 f"{len(outputs[r.req_id])} tokens, not "
+                                 f"{r.max_new_tokens}")
 
 
 def main_path_requests(vocab):
@@ -737,6 +780,230 @@ def prefix_full_width():
     log(f"  {same} of {len(on['outputs'])} requests' greedy tokens equal "
         f"with the cache on and off (bf16: a hit moves the chunk "
         f"boundaries, so this is reported, not required)")
+
+
+# --------------------------------------------------------------------------
+# phases 10 and 11: online serving and the host swap tier at full width
+# --------------------------------------------------------------------------
+ONLINE_N = 16                      # phase 10's requests
+SWAP_BLOCKS, HOST_BLOCKS = 160, 256   # phase 11's device pool and host tier
+
+
+def online_server(cfg, params, **kw):
+    """OnlineServer(sarathi_serve) on the main path's geometry, in bf16,
+    both step shapes captured; returns the server."""
+    import torch
+    from repro_torch.serving import OnlineServer
+    t0 = time.perf_counter()
+    srv = OnlineServer(cfg, params, policy="sarathi_serve", paged=True,
+                       block_size=BS, chunk_size=C_MAIN, n_slots=N_SLOTS,
+                       max_len=MAX_LEN, dtype=torch.bfloat16, **kw)
+    srv.executor.warmup()
+    torch.cuda.synchronize()
+    bm = srv.engine.block_manager
+    log(f"  built the engine ({bm.n_blocks} blocks, {bm.n_host_slots} host "
+        f"slots) and captured both steps in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    return srv
+
+
+def serve_online_run(srv, cfg, reqs):
+    """``srv.run(reqs)`` (warmed up already) with every logit checked, the
+    launches counted from 0 just before it and held to 40 layers x the
+    sub-steps just after, and every request's length checked.  Returns
+    (result, host wall s, steps, sub-steps, sub-steps with a chunk,
+    launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    eng = srv.engine
+    verdict = watch_logits(eng, cfg)
+    steps = StepLog(eng, scheduler=srv.scheduler)
+    ops.reset_launches()
+    it0 = eng.iterations
+    t = time.perf_counter()
+    res = srv.run(reqs, warmup=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(ops.launches)
+    sub_steps = eng.iterations - it0
+    verdict()
+    with_chunk = expect_launches(cfg, launches, steps, sub_steps)
+    check_lengths(reqs, res.outputs)
+    return res, wall, steps, sub_steps, with_chunk, launches
+
+
+def release(srv):
+    """Free a server's engine (its graphs' pool is a reference cycle)."""
+    import torch
+    del srv.engine, srv.executor, srv.scheduler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def online_full_width(cfg, params):
+    """Phase 10: OnlineServer(sarathi_serve) at full width on Poisson
+    arrivals of the paper's §5.3 request shapes, cut to the engine's
+    max_len; logs the TTFT / TBT / queueing table of the loop's clock."""
+    from repro_torch.serving import format_table, online_workload
+    reqs = online_workload(ONLINE_N, rate=1.0, arrival="poisson",
+                           pd_ratio=8.0, min_len=1024, max_len=MAX_LEN,
+                           theta=0.4, vocab_size=cfg.vocab_size, seed=0)
+    srv = online_server(cfg, params)
+    res, wall, steps, sub_steps, with_chunk, launches = serve_online_run(
+        srv, cfg, reqs)
+    s = res.summary()
+    for line in format_table(s, unit="ms").splitlines():
+        log("  " + line)
+    hybrid_ms, decode_ms, host_ms, plan_ms = steps.medians_ms()
+    log(f"  {len(res.iterations)} iterations in {sub_steps} packed "
+        f"sub-steps ({with_chunk} with a chunk); {s.n_tokens} output "
+        f"tokens, {s.throughput:.1f} tokens/s over the virtual clock "
+        f"({res.makespan:.3f} s); host wall time of run() {wall:.3f} s "
+        f"({sum(t for _, t, _ in steps.steps):.3f} s in steps, "
+        f"{sum(steps.plan):.3f} s planning, which the clock leaves out)")
+    log(f"  median hybrid step {hybrid_ms:.3f} ms, decode-only "
+        f"{decode_ms:.3f} ms, host a sub-step {host_ms:.3f} ms, plan "
+        f"{plan_ms:.3f} ms; every request got its tokens")
+    log(f"  launches over run(): K3 "
+        f"{launches['paged_chunked_prefill_attention']}, K4 "
+        f"{launches['paged_decode_attention']} (= {cfg.n_layers} layers x "
+        f"{with_chunk} / {sub_steps} sub-steps)")
+    release(srv)
+
+
+def swap_requests(vocab):
+    """Phase 11's workload: 8 requests at time 0, prompts of 512-1024
+    tokens, 128 new tokens each."""
+    import numpy as np
+    from repro_torch.scheduler import Request
+    rng = np.random.default_rng(2)
+    lens = rng.integers(512, 1025, 8)
+    return [Request(prompt=rng.integers(0, vocab, int(n)).tolist(),
+                    max_new_tokens=128, arrival_time=0.0) for n in lens]
+
+
+class SwapCheck:
+    """Wraps an engine's two swap methods: at swap-out it snapshots each
+    ``(device_block, host_slot)`` pair's pool bytes on every layer, at
+    swap-in it holds the blocks named by the ``(host_slot, device_block)``
+    pairs bit-equal to them; each direction's finished copy is timed
+    (synchronised before and after, the snapshot outside the span)."""
+
+    def __init__(self, eng):
+        import torch
+        leaves = [part["pkv"] for layer in eng.cache
+                  for part in layer.values() if "pkv" in part]
+        self.block_bytes = sum(x[0].numel() * x.element_size()
+                               for x in leaves)
+        bits = {2: torch.int16, 4: torch.int32}[leaves[0].element_size()]
+        self.saved = {}
+        self.bytes = {"out": 0, "in": 0}
+        self.secs = {"out": 0.0, "in": 0.0}
+        self.checked = 0
+        swap_out, swap_in = eng.swap_out_blocks, eng.swap_in_blocks
+
+        def blocks(b):
+            return torch.stack([x[b] for x in leaves]).view(bits)
+
+        def timed(direction, fn, pairs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(pairs)
+            torch.cuda.synchronize()
+            self.secs[direction] += time.perf_counter() - t
+            self.bytes[direction] += len(pairs) * self.block_bytes
+
+        def checked_out(pairs):
+            for b, slot in pairs:
+                self.saved[slot] = blocks(b)
+            timed("out", swap_out, pairs)
+
+        def checked_in(pairs):
+            timed("in", swap_in, pairs)
+            for slot, b in pairs:
+                if not torch.equal(blocks(b), self.saved.pop(slot)):
+                    raise AssertionError(f"host slot {slot} -> block {b}: "
+                                         f"the bytes differ after the "
+                                         f"round trip")
+                self.checked += 1
+
+        eng.swap_out_blocks, eng.swap_in_blocks = checked_out, checked_in
+
+    def rate(self, direction):
+        """(GB moved, GB/s) of one direction."""
+        gb = self.bytes[direction] / 1e9
+        return gb, gb / self.secs[direction] if self.secs[direction] else 0.0
+
+
+def swap_full_width(cfg, params, smi):
+    """Phase 11: 8 requests at once on a pool too small for them, with the
+    host swap tier; then the same pool under recompute, and the default
+    pool (unpressured).  The round trip must be bit-exact, the swap run
+    must swap at least twice and resume every victim, and its greedy
+    tokens must equal the unpressured run's."""
+    from repro_torch.serving import format_table
+    outputs = {}
+    for name, kw in (("swap", dict(n_blocks=SWAP_BLOCKS,
+                                   host_blocks=HOST_BLOCKS,
+                                   preempt_mode="swap")),
+                     ("recompute", dict(n_blocks=SWAP_BLOCKS)),
+                     ("unpressured", {})):
+        log(f"  {name}:")
+        reqs = swap_requests(cfg.vocab_size)
+        srv = online_server(cfg, params, **kw)
+        check = SwapCheck(srv.engine) if name == "swap" else None
+        res, wall, _, sub_steps, with_chunk, launches = serve_online_run(
+            srv, cfg, reqs)
+        s = res.summary()
+        for line in format_table(s, unit="ms").splitlines():
+            log("  " + line)
+        log(f"  {len(res.iterations)} iterations, {sub_steps} sub-steps "
+            f"({with_chunk} with a chunk), host wall time of run() "
+            f"{wall:.3f} s; preemptions {res.n_preemptions}, swap-outs "
+            f"{res.n_swap_outs}, swap-ins {res.n_swap_ins}, recompute "
+            f"tokens {s.recompute_tokens}; launches K3 "
+            f"{launches['paged_chunked_prefill_attention']}, K4 "
+            f"{launches['paged_decode_attention']}")
+        outputs[name] = [res.outputs[r.req_id] for r in reqs]
+        if check is not None:
+            swap_verdict(cfg, res, check, smi)
+        del check
+        release(srv)
+
+    plain = outputs["unpressured"]
+    if outputs["swap"] != plain:
+        same = sum(a == b for a, b in zip(outputs["swap"], plain))
+        raise AssertionError(f"swap run's greedy tokens differ from the "
+                             f"unpressured run's in {len(plain) - same} of "
+                             f"{len(plain)} requests")
+    same = sum(a == b for a, b in zip(outputs["recompute"], plain))
+    log(f"  swap run's greedy tokens == the unpressured run's for all "
+        f"{len(plain)} requests; the recompute run's agree for {same} of "
+        f"{len(plain)} (reported, not required: recompute re-prefills the "
+        f"outputs through the chunk kernel)")
+
+
+def swap_verdict(cfg, res, check, smi):
+    """Phase 11's swap run: at least 2 swap-outs, each resumed, every
+    swapped block held bit-equal; logs each direction's rate."""
+    if not (res.n_swap_outs >= 2 and res.n_swap_ins == res.n_swap_outs):
+        raise AssertionError(f"{res.n_swap_outs} swap-outs, "
+                             f"{res.n_swap_ins} swap-ins on {SWAP_BLOCKS} "
+                             f"blocks")
+    if not check.checked or check.saved:
+        raise AssertionError(f"{check.checked} blocks checked, "
+                             f"{len(check.saved)} never swapped back in")
+    out_gb, out_rate = check.rate("out")
+    in_gb, in_rate = check.rate("in")
+    log(f"  round trip bit-exact: {check.checked} blocks of "
+        f"{check.block_bytes / 1e6:.1f} MB (all {cfg.n_layers} layers) "
+        f"equal after {res.n_swap_outs} swap-outs / {res.n_swap_ins} "
+        f"swap-ins")
+    log(f"  device -> host {out_gb:.3f} GB in {check.secs['out']:.3f} s: "
+        f"{out_rate:.2f} GB/s; host -> device {in_gb:.3f} GB in "
+        f"{check.secs['in']:.3f} s: {in_rate:.2f} GB/s (pinned arena; "
+        f"{smi})")
 
 
 # --------------------------------------------------------------------------
@@ -1108,6 +1375,22 @@ def main() -> int:
     log("== 9. paper-llama-13b bf16, Server(sarathi_serve, paged, "
         "prefix_cache=True), full width, eager then captured")
     prefix_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.models import init_params
+    cfg = get_config("paper-llama-13b")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16)
+    log(f"== 10. {cfg.name} bf16, OnlineServer(sarathi_serve, paged), full "
+        f"width, {ONLINE_N} Poisson arrivals at 1 request/s")
+    online_full_width(cfg, params)
+
+    log(f"== 11. {cfg.name} bf16, the host swap tier: {SWAP_BLOCKS} device "
+        f"blocks, {HOST_BLOCKS} host slots, swap vs recompute vs "
+        f"unpressured")
+    swap_full_width(cfg, params, smi)
+    del params
+    log(smi)
 
     kernels = []
     for name in REPLACES:

@@ -6,10 +6,10 @@ for:
 
 * model construction (``repro_torch.models.registry.build_model``),
 * the KV-cache geometry of the engine and the kernels,
+* parameter / KV-cache byte accounting (``repro_torch.sim.cost_model``),
 * the reduced "smoke" variants used by CPU tests.
 
-(The JAX package's cost model and sharding policy read it too; the port
-has neither yet.)
+(The JAX package's sharding policy reads it too; the port has none yet.)
 """
 from __future__ import annotations
 

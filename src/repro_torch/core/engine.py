@@ -32,6 +32,12 @@ a chunk lane launch the chunked-prefill kernel.
 
 The cache is updated in place at fixed addresses; nothing is donated or
 copied per step.
+
+``host_blocks > 0`` gives the paged pool a host KV swap tier: the
+:class:`BlockManager` keeps the host-slot ledger, and the engine one host
+arena per pool leaf (pinned on CUDA) that :meth:`Engine.swap_out_blocks`
+and :meth:`Engine.swap_in_blocks` move whole blocks through, writing the
+pool in place so that the captured graphs keep reading it.
 """
 from __future__ import annotations
 
@@ -66,17 +72,35 @@ def _reset_slot(cache, slot: int) -> None:
                 leaf[slot] = -1 if not leaf.is_floating_point() else 0
 
 
+def _pool_leaves(cache) -> List[torch.Tensor]:
+    """The block-pool leaves of ``cache`` (block axis first), in layer
+    order."""
+    return [leaf for layer in cache for part in layer.values()
+            for key, leaf in part.items() if key in _POOL_KEYS]
+
+
 def _copy_blocks(cache, src: torch.Tensor, dst: torch.Tensor) -> None:
     """Copy pool-block contents ``src[i] -> dst[i]`` on every paged KV
     leaf, in place (slot-indexed leaves are skipped).  This is the device
     half of a copy-on-write fork: the :class:`BlockManager` swaps a shared
     block out of the writer's table for a fresh one, and this copy makes
     the fork hold the same KV before the write lands."""
-    for layer in cache:
-        for part in layer.values():
-            for key, leaf in part.items():
-                if key in _POOL_KEYS:
-                    leaf[dst] = leaf[src]
+    for leaf in _pool_leaves(cache):
+        leaf[dst] = leaf[src]
+
+
+def _slot_runs(slots: Sequence[int]):
+    """Split host slots into runs of consecutive slots: yields
+    ``(i, first_slot, length)`` with ``slots[i:i + length] ==
+    range(first_slot, first_slot + length)``, so that each run moves as
+    one contiguous copy."""
+    i = 0
+    while i < len(slots):
+        n = 1
+        while i + n < len(slots) and slots[i + n] == slots[i] + n:
+            n += 1
+        yield i, slots[i], n
+        i += n
 
 
 @dataclass
@@ -190,8 +214,6 @@ class Engine:
             raise _unported("tp > 1 / devices", "pp/tp/sp")
         if sp:
             raise _unported("sp", "pp/tp/sp")
-        if host_blocks:
-            raise _unported("host_blocks", "swap")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model: Model = build_model(cfg)
@@ -218,7 +240,9 @@ class Engine:
                     # same token capacity as the dense rows it replaces,
                     # minus the max_len-long scratch row (now ONE block)
                     n_blocks = n_slots * (max_len // block_size) + 1
-                bm = BlockManager(n_blocks, block_size, watermark=watermark)
+                bm = BlockManager(n_blocks, block_size,
+                                  watermark=watermark,
+                                  host_blocks=host_blocks)
             if max_len % bm.block_size:
                 raise ValueError("max_len must tile by the block size")
             self.block_manager = bm
@@ -230,6 +254,7 @@ class Engine:
             self.blocks_per_seq = 0
             self.cache = self.model.init_cache(n_slots + 1, max_len, dtype,
                                                device=self.device)
+        self._host_pool = self._make_host_pool()
         self.sampling = sampling
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._free: List[int] = list(range(n_slots))
@@ -299,12 +324,57 @@ class Engine:
         self.generator.set_state(state)
         self.iterations = n
 
-    # ------------------------------------------------------- swap (none)
+    # ------------------------------------------------------------- KV swap
+    def _make_host_pool(self) -> List[torch.Tensor]:
+        """One host arena per pool leaf, ``[n_host_slots, *block_shape]``,
+        pinned on CUDA so that the swap copies are DMA transfers.  Unlike
+        the JAX package's lazy numpy arena it is built with the engine, so
+        that a swap's clock charge holds only the copy.  Empty without a
+        host tier."""
+        bm = self.block_manager
+        if bm is None or not bm.n_host_slots:
+            return []
+        pin = self.device.type == "cuda"
+        return [torch.empty((bm.n_host_slots, *leaf.shape[1:]),
+                            dtype=leaf.dtype, pin_memory=pin)
+                for leaf in _pool_leaves(self.cache)]
+
     def swap_out_blocks(self, pairs: Sequence[tuple]):
-        raise _unported("swap_out_blocks", "swap")
+        """Device->host move for :meth:`BlockManager.swap_out` pairs
+        ``(device_block, host_slot)``: each named block's KV lands in its
+        host slot on every layer.  Returns once the copies have finished:
+        the manager may hand those blocks to another request in the same
+        plan."""
+        if not pairs:
+            return
+        src = torch.tensor([b for b, _ in pairs], dtype=torch.long,
+                           device=self.device)
+        runs = list(_slot_runs([s for _, s in pairs]))
+        for leaf, arena in zip(_pool_leaves(self.cache), self._host_pool):
+            rows = leaf.index_select(0, src)
+            for i, s, n in runs:
+                arena[s:s + n].copy_(rows[i:i + n], non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def swap_in_blocks(self, pairs: Sequence[tuple]):
-        raise _unported("swap_in_blocks", "swap")
+        """Host->device move for :meth:`BlockManager.swap_in` pairs
+        ``(host_slot, device_block)``, before the resumed request's next
+        chunk: restores the exact KV bytes swapped out, so greedy outputs
+        are bit-identical to never having been preempted.  The pool is
+        written in place on the current stream (the JAX package returns a
+        new cache tree instead); the captured graphs hold its addresses."""
+        if not pairs:
+            return
+        dst = torch.tensor([b for _, b in pairs], dtype=torch.long,
+                           device=self.device)
+        runs = list(_slot_runs([s for s, _ in pairs]))
+        for leaf, arena in zip(_pool_leaves(self.cache), self._host_pool):
+            rows = torch.empty((len(pairs), *leaf.shape[1:]),
+                               dtype=leaf.dtype, device=self.device)
+            for i, s, n in runs:
+                rows[i:i + n].copy_(arena[s:s + n], non_blocking=True)
+            leaf.index_copy_(0, dst, rows)
 
     # ------------------------------------------------------ packed steps
     def _pack(self, chunk: Optional[ChunkWork],

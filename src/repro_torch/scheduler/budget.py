@@ -61,11 +61,25 @@ package's gate counts them free and can then admit a prompt whose
 
 Preemption policy (``preempt_mode``)
 ------------------------------------
-Only ``recompute`` is ported: discard KV, re-prefill prompt + outputs on
-readmission.  The JAX package's ``swap`` and ``hybrid`` modes (the host KV
-tier, and its cost-model choice) raise ``NotImplementedError`` here
-(ROADMAP Queue 1, swap); the swap-resume and swap-out branches keep their
-places so that item only has to lift that refusal.
+What happens to a pool-pressure victim is selectable:
+
+* ``recompute`` (default) — discard KV, re-prefill prompt + outputs on
+  readmission (the PR 2 behaviour; the only option when the pool has no
+  host tier);
+* ``swap`` — move the victim's blocks to the BlockManager's host tier
+  (``swap_out_hook`` streams the bytes into the engine's host arena) and
+  stream them back at resume, before the victim's next chunk
+  (``swap_in_hook``).  Victims whose tables hold shared or prefix-pinned
+  blocks are not swappable and silently fall back to recompute;
+* ``hybrid`` — per victim, compare the PCIe round trip
+  (``2 * kv_swap_time`` over the whole block payload) against the
+  re-prefill cost (``chunked_prefill_total`` of the victim's context)
+  using the analytical cost model
+  (:mod:`repro_torch.sim.cost_model`), and pick the cheaper restore path.
+
+All three produce bit-identical greedy outputs: swap restores the exact
+KV bytes recompute would regenerate — the policies differ only in clock
+time and pool traffic.
 """
 from __future__ import annotations
 
@@ -98,9 +112,11 @@ class SarathiServeScheduler(Scheduler):
         ``block_manager``; enables cross-request KV reuse (see module
         docstring).  Greedy outputs are bit-identical with and without it.
     preempt_mode:
-        ``recompute`` — what happens to a pool-pressure victim.  The JAX
-        package's ``swap`` and ``hybrid`` (and their ``swap_cfg`` /
-        ``swap_hw``) raise ``NotImplementedError`` (ROADMAP Queue 1, swap).
+        ``recompute`` | ``swap`` | ``hybrid`` — what happens to a
+        pool-pressure victim (see module docstring).  Non-default modes
+        require a ``block_manager`` with host slots; ``hybrid``
+        additionally needs ``swap_cfg`` + ``swap_hw`` for the cost-model
+        comparison.
     """
 
     supports_time = True            # next_plan() accepts now= for gating
@@ -135,12 +151,20 @@ class SarathiServeScheduler(Scheduler):
         if preempt_mode not in self.PREEMPT_MODES:
             raise ValueError(f"preempt_mode must be one of "
                              f"{self.PREEMPT_MODES}, got {preempt_mode!r}")
-        if preempt_mode != "recompute" or swap_cfg is not None \
-                or swap_hw is not None:
-            raise NotImplementedError(
-                f"preempt_mode={preempt_mode!r} / swap_cfg / swap_hw are not "
-                f"ported yet (ROADMAP Queue 1: swap)")
+        if preempt_mode != "recompute":
+            if block_manager is None:
+                raise ValueError(f"preempt_mode={preempt_mode!r} requires "
+                                 f"a block_manager")
+            if block_manager.n_host_slots == 0:
+                raise ValueError(f"preempt_mode={preempt_mode!r} requires "
+                                 f"a block_manager with host_blocks > 0")
+        if preempt_mode == "hybrid" and (swap_cfg is None
+                                         or swap_hw is None):
+            raise ValueError("preempt_mode='hybrid' needs swap_cfg and "
+                             "swap_hw for the cost-model comparison")
         self.preempt_mode = preempt_mode
+        self.swap_cfg = swap_cfg
+        self.swap_hw = swap_hw
         self.n_swap_outs = 0            # victims evicted by swap
         self.n_swap_ins = 0             # swapped victims resumed
 
@@ -273,10 +297,25 @@ class SarathiServeScheduler(Scheduler):
     def _swap_decision(self, victim: Request) -> bool:
         """Should ``victim`` be evicted by swap (True) or recompute
         (False)?  Decided BEFORE any prefix commit — committing would pin
-        the victim's blocks and make them unswappable.  Only ``recompute``
-        is ported (``__init__`` refuses the other modes)."""
-        return (self.preempt_mode == "swap"
-                and self.block_manager.can_swap_out(victim.req_id))
+        the victim's blocks and make them unswappable.  ``hybrid``
+        charges the full PCIe round trip (out now + in at resume) against
+        re-prefilling the victim's context in this policy's chunks."""
+        if self.preempt_mode == "recompute":
+            return False
+        bm = self.block_manager
+        if not bm.can_swap_out(victim.req_id):
+            return False        # shared/pinned blocks or host tier full
+        if self.preempt_mode == "swap":
+            return True
+        from repro_torch.sim.cost_model import (
+            chunked_prefill_total, kv_swap_bytes, kv_swap_time)
+        swap_t = 2.0 * kv_swap_time(
+            self.swap_hw, kv_swap_bytes(self.swap_cfg,
+                                        len(bm.table(victim.req_id)),
+                                        bm.block_size))
+        rec_t = chunked_prefill_total(self.swap_cfg, self.swap_hw,
+                                      victim.context_len, self.chunk_size)
+        return swap_t < rec_t
 
     def _preempt(self, victim: Request, preempt_hook=None,
                  swap_out_hook=None):

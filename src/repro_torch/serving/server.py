@@ -4,8 +4,9 @@ Drives a workload of :class:`repro_torch.scheduler.Request`s to
 completion and records each iteration's composition (prefill / decode
 token counts), as ``repro.serving.server`` does, with the JAX loop's
 preemption and swap hooks and its handling of rejected prompts.  The
-arguments of the JAX signature that this port has not got yet raise
-``NotImplementedError`` naming their ROADMAP item.
+arguments of the JAX signature that this port has not got yet (``pp``,
+``force_pipeline``; the engine refuses ``tp``, ``devices`` and ``sp``)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,14 +21,13 @@ from repro_torch.core.engine import Engine
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.models import stack
 from repro_torch.scheduler import (BUDGETED_POLICIES, CHUNKED_POLICIES,
-                                   POLICIES, PREFIX_POLICIES, Request)
+                                   POLICIES, PREFIX_POLICIES, SWAP_POLICIES,
+                                   Request)
+from repro_torch.sim import A100
 
 # arguments of the JAX signature that only the server takes: default and
 # the ROADMAP Queue 1 item that ports each (the engine refuses its own)
-_UNPORTED = {
-    "pp": (1, "pp/tp/sp"), "force_pipeline": (False, "pp/tp/sp"),
-    "preempt_mode": ("recompute", "swap"), "swap_hw": (None, "swap"),
-}
+_UNPORTED = {"pp": (1, "pp/tp/sp"), "force_pipeline": (False, "pp/tp/sp")}
 
 
 def _refuse_unported(**kw) -> None:
@@ -64,11 +64,18 @@ def build_engine_and_scheduler(cfg: ModelConfig, params, *, policy: str,
     ``prefix_cache=True`` attaches a :class:`PrefixCache` to that pool
     (paged, a prefix-aware policy and pure attention layers only), and
     ``token_budget`` goes to the policies that take one, as in the JAX
-    ``build_engine_and_scheduler``."""
+    ``build_engine_and_scheduler``.
+
+    ``host_blocks > 0`` gives the paged pool a host swap tier of that many
+    block-sized slots, and ``preempt_mode`` picks what the scheduler does
+    to a pool-pressure victim: ``"recompute"`` (drop its KV, re-prefill on
+    resume), ``"swap"`` (move its blocks to the host arena and back before
+    its next chunk) or ``"hybrid"`` (per victim, the cheaper of the two
+    under the cost model on ``swap_hw``, default A100).  Swap needs paged,
+    a swap-aware policy and pure attention layers."""
     if policy not in POLICIES:
         raise KeyError(f"unknown policy {policy!r}; have {sorted(POLICIES)}")
-    _refuse_unported(pp=pp, force_pipeline=force_pipeline,
-                     preempt_mode=preempt_mode, swap_hw=swap_hw)
+    _refuse_unported(pp=pp, force_pipeline=force_pipeline)
     engine_chunk = chunk_size if policy in CHUNKED_POLICIES else \
         (max_prompt_len or max_len)
     engine = Engine(cfg, params, n_slots=n_slots, max_len=max_len,
@@ -84,19 +91,40 @@ def build_engine_and_scheduler(cfg: ModelConfig, params, *, policy: str,
               chunk_size=chunk_size)
     if engine.block_manager is not None:
         kw["block_manager"] = engine.block_manager
+    slot_kinds = sorted({k for k in stack.layer_kinds(cfg)
+                         if k not in ("dense", "moe")})
     if prefix_cache:
         if policy not in PREFIX_POLICIES:
             raise ValueError(f"prefix_cache is only supported by "
                              f"{sorted(PREFIX_POLICIES)}, not {policy!r}")
         if engine.block_manager is None:
             raise ValueError("prefix_cache requires paged=True")
-        bad = [k for k in stack.layer_kinds(cfg) if k not in ("dense", "moe")]
-        if bad:
+        if slot_kinds:
             raise ValueError(
                 f"prefix_cache requires pure paged-attention layers; "
-                f"{cfg.name} has slot-state kinds {sorted(set(bad))} whose "
+                f"{cfg.name} has slot-state kinds {slot_kinds} whose "
                 f"per-request history the block pool cannot share")
         kw["prefix_cache"] = PrefixCache(engine.block_manager)
+    if preempt_mode != "recompute":
+        if policy not in SWAP_POLICIES:
+            raise ValueError(f"preempt_mode={preempt_mode!r} is only "
+                             f"supported by {sorted(SWAP_POLICIES)}, "
+                             f"not {policy!r}")
+        if engine.block_manager is None:
+            raise ValueError("preempt_mode != 'recompute' requires "
+                             "paged=True")
+        if host_blocks <= 0:
+            raise ValueError("preempt_mode != 'recompute' requires "
+                             "host_blocks > 0 (the host swap tier)")
+        if slot_kinds:
+            raise ValueError(
+                f"KV swap requires pure paged-attention layers; "
+                f"{cfg.name} has slot-state kinds {slot_kinds} whose "
+                f"per-request history lives outside the block pool")
+        kw["preempt_mode"] = preempt_mode
+        if preempt_mode == "hybrid":
+            kw["swap_cfg"] = cfg
+            kw["swap_hw"] = swap_hw if swap_hw is not None else A100
     if token_budget is not None:
         if policy not in BUDGETED_POLICIES:
             raise ValueError(f"token_budget is only supported by "

@@ -112,8 +112,15 @@ def test_policy_sets_match_jax():
 
 @pytest.mark.parametrize("kw", [dict(preempt_mode="swap"),
                                 dict(preempt_mode="hybrid"),
-                                dict(swap_hw="h100")])
+                                dict(preempt_mode="bogus")])
 def test_swap_modes_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: swap"):
-        SarathiServeScheduler(n_slots=2, max_decodes=1, chunk_size=8,
-                              block_manager=BlockManager(8, 4), **kw)
+    """Without a host tier the swap modes raise, as an unknown mode does,
+    with the JAX scheduler's error."""
+    errors = []
+    for sched_cls, bm_cls in ((SarathiServeScheduler, BlockManager),
+                              (JaxSarathiServeScheduler, JaxBlockManager)):
+        with pytest.raises(ValueError) as e:
+            sched_cls(n_slots=2, max_decodes=1, chunk_size=8,
+                      block_manager=bm_cls(8, 4), **kw)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
