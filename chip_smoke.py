@@ -84,7 +84,26 @@ Phases (each one that fails raises, so the script exits non-zero):
     back bit-equal, at least 2 swap-outs each resumed, and the greedy
     tokens equal to those of the same workload on the default pool
     (unpressured); the same pool under ``recompute`` runs beside it; logs
-    each direction's bytes and GB/s, and each run's wall time.
+    each direction's bytes and GB/s, and each run's wall time;
+12. pipeline-parallel serving at full width: the same model with
+    ``pp=4``, the four stages round-robin on the one card (each stage its
+    own captured graphs).  (a) phase 4's workload through
+    ``Server(policy="sarathi", paged=True, pp=4)`` and then ``pp=1``:
+    the greedy tokens must be identical, every logit finite, and the K3
+    / K4 launches, summed over the stages, 40 layers x the sub-steps that
+    need them; logs the largest logit gap, each stage's median time for
+    the hybrid and the decode-only micro-batch and their sum against the
+    pp=1 step.  (b) the paper's §5.3 measurement: ``benchmarks/
+    pipeline.py``'s bimodal workload at the main path's scale (8 chat
+    requests, prompts 32-64 and 128-192 new tokens, alternating with 8
+    documents, prompts 1024-2048 and 16-32 new, all at 0) through
+    ``OnlineServer(pp=4)`` (16 slots, ``max_len=2304``, 3 decodes a
+    micro-batch), chunked (``sarathi_serve``, one 256-token chunk a
+    micro-batch) and unchunked (``orca``, whole prompts): every request
+    its tokens, every logit finite, launches held; logs the bubble
+    fraction on the pipeline clock, makespan, micro-batches, TBT p99 and
+    the A100 simulator's prediction, and whether chunked < unchunked
+    (reported, not required).
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -425,16 +444,19 @@ def tensor_core_check():
 # --------------------------------------------------------------------------
 class StepLog:
     """Wraps an engine's ``execute`` (the step's time, ending in a
-    synchronize) and, per packed sub-step, its ``_execute_packed`` and
-    ``_run`` (the sub-step's host time: from its start until the replay,
-    or the eager enqueue, returns, before any sync), its ``_apply_cow``
+    synchronize; a pipeline engine's stage times too) and, per packed
+    sub-step, its ``_execute_packed`` and ``_run`` (the sub-step's host
+    time: from its start until the replay, or the eager enqueue, returns,
+    before any sync; a pipeline engine has none), its ``_apply_cow``
     (copy-on-write pairs) and, with ``keep_logits``, keeps a device copy
-    of every sub-step's logits; with ``scheduler``, also times each
-    ``next_plan`` (the host's planning between steps)."""
+    of every sub-step's logits (chained after the engine's ``on_logits``);
+    with ``scheduler``, also times each ``next_plan`` (the host's planning
+    between steps)."""
 
     def __init__(self, eng, keep_logits=False, sync=True, scheduler=None):
         import torch
         self.steps = []          # (has_chunk, step s, sub-steps)
+        self.stages = []         # pipeline: (has_chunk, [stage s])
         self.host = []           # per sub-step, s
         self.plan = []           # per next_plan call, s
         self.cow_pairs = 0
@@ -444,26 +466,40 @@ class StepLog:
         started = []
 
         def timed_execute(plan):
-            n = len(self.host)
+            n = eng.iterations
             t = time.perf_counter()
             out = execute(plan)
             if sync:
                 torch.cuda.synchronize()
             self.steps.append((bool(plan.chunks), time.perf_counter() - t,
-                               len(self.host) - n))
+                               eng.iterations - n))
+            if hasattr(eng, "execute_timed"):
+                self.stages.append((bool(plan.chunks), list(eng._durs)))
             return out
 
         def timed_packed(*args, **kw):
             started.append(time.perf_counter())
-            return packed(*args, **kw)
+            try:
+                return packed(*args, **kw)
+            finally:
+                started.pop()
 
         def timed_run(shape):
             out = run(shape)
-            self.host.append(time.perf_counter() - started.pop())
-            if keep_logits:
-                self.logits.append(torch.cat(
-                    [x.float() for x in out if x is not None]))
+            self.host.append(time.perf_counter() - started[-1])
             return out
+
+        if keep_logits:
+            seen = eng.on_logits
+
+            def keep(chunk_logits, decode_logits):
+                if seen is not None:
+                    seen(chunk_logits, decode_logits)
+                self.logits.append(torch.cat(
+                    [x.float() for x in (chunk_logits, decode_logits)
+                     if x is not None]))
+
+            eng.on_logits = keep
 
         def counted_cow(pairs):
             self.cow_pairs += len(pairs)
@@ -646,8 +682,10 @@ def serve_full_width(cfg, params, reqs, graphs=True, profile=False,
         f"({n_hybrid} with a chunk, {len(res.iterations) - n_hybrid} "
         f"decode-only) in {sub_steps} packed sub-steps, {n_logits} logit "
         f"rows all finite")
+    host = (f"{host_ms:.3f} ms" if steps.host else
+            "not measured (the stages are timed instead)")
     log(f"  median hybrid step {hybrid_ms:.3f} ms, median decode-only step "
-        f"{decode_ms:.3f} ms, median host time a sub-step {host_ms:.3f} ms, "
+        f"{decode_ms:.3f} ms, median host time a sub-step {host}, "
         f"{n_out / wall:.1f} output tokens/s ({wall:.2f} s run: "
         f"{sum(s for _, s, _ in steps.steps):.2f} s in steps, "
         f"{sum(steps.plan):.2f} s planning, median {plan_ms:.3f} ms a "
@@ -657,7 +695,9 @@ def serve_full_width(cfg, params, reqs, graphs=True, profile=False,
     out = {"outputs": [res.outputs[r.req_id] for r in reqs],
            "launches": launches, "logits": steps.logits,
            "cow_pairs": steps.cow_pairs,
-           "cached": getattr(srv.scheduler, "n_cached_tokens", 0)}
+           "cached": getattr(srv.scheduler, "n_cached_tokens", 0),
+           "step_ms": (hybrid_ms, decode_ms), "stages": steps.stages,
+           "devices": [str(d) for d in getattr(eng, "devices", [])]}
     del srv, eng, steps
     gc.collect()                  # the engine's pool (a reference cycle)
     torch.cuda.empty_cache()
@@ -707,10 +747,11 @@ def full_width(arch="paper-llama-13b", profile=False, require_equal=True):
     return graph["launches"], params
 
 
-def compare_runs(eager, graph, require_equal=True):
+def compare_runs(eager, graph, require_equal=True,
+                 names=("eager", "captured")):
     """Compare the two runs' greedy tokens, naming the first sub-step
     whose argmax differs and the largest logit gap up to it; raise if
-    they differ and ``require_equal``."""
+    they differ and ``require_equal``.  ``names`` are the two runs'."""
     import torch
     gap, first = 0.0, None
     for i, (a, b) in enumerate(zip(eager["logits"], graph["logits"])):
@@ -721,14 +762,14 @@ def compare_runs(eager, graph, require_equal=True):
     if eager["outputs"] != graph["outputs"]:
         same = sum(a == b for a, b in zip(eager["outputs"],
                                           graph["outputs"]))
-        msg = (f"captured tokens differ from eager in "
+        msg = (f"{names[1]} tokens differ from {names[0]} in "
                f"{len(graph['outputs']) - same} requests: first differing "
                f"sub-step {first}, largest logit gap up to it {gap:.4e}")
         if require_equal:
             raise AssertionError(msg)
         log("  " + msg)
         return
-    log(f"  captured == eager: greedy tokens identical for "
+    log(f"  {names[1]} == {names[0]}: greedy tokens identical for "
         f"{len(graph['outputs'])} requests; largest logit gap {gap:.4e} "
         f"over {len(graph['logits'])} sub-steps")
 
@@ -790,14 +831,17 @@ SWAP_BLOCKS, HOST_BLOCKS = 160, 256   # phase 11's device pool and host tier
 
 
 def online_server(cfg, params, **kw):
-    """OnlineServer(sarathi_serve) on the main path's geometry, in bf16,
-    both step shapes captured; returns the server."""
+    """OnlineServer(sarathi_serve) on the main path's geometry (``kw``
+    adds to it or overrides it), in bf16, both step shapes captured;
+    returns the server."""
     import torch
     from repro_torch.serving import OnlineServer
     t0 = time.perf_counter()
-    srv = OnlineServer(cfg, params, policy="sarathi_serve", paged=True,
-                       block_size=BS, chunk_size=C_MAIN, n_slots=N_SLOTS,
-                       max_len=MAX_LEN, dtype=torch.bfloat16, **kw)
+    args = dict(policy="sarathi_serve", paged=True, block_size=BS,
+                chunk_size=C_MAIN, n_slots=N_SLOTS, max_len=MAX_LEN,
+                dtype=torch.bfloat16)
+    args.update(kw)
+    srv = OnlineServer(cfg, params, **args)
     srv.executor.warmup()
     torch.cuda.synchronize()
     bm = srv.engine.block_manager
@@ -1004,6 +1048,137 @@ def swap_verdict(cfg, res, check, smi):
         f"{out_rate:.2f} GB/s; host -> device {in_gb:.3f} GB in "
         f"{check.secs['in']:.3f} s: {in_rate:.2f} GB/s (pinned arena; "
         f"{smi})")
+
+
+# --------------------------------------------------------------------------
+# phase 12: pipeline-parallel serving, and the §5.3 bubble measurement
+# --------------------------------------------------------------------------
+PP = 4
+# phase 12(b): benchmarks/pipeline.py's engine and bimodal workload at the
+# main path's scale: 16 slots, max_decodes 16 // pp - 1, 8 chat requests
+# (prompts 32-64, 128-192 new tokens) alternating with 8 documents
+# (prompts 1024-2048, 16-32 new), all at 0
+PP_N, PP_SLOTS, PP_MAX_LEN, PP_DOC_MAX = 16, 16, 2304, 2048
+PP_MAX_DECODES = PP_SLOTS // PP - 1
+
+
+def stage_medians(stages, with_chunk):
+    """Median ms of each stage over the micro-batches with (or without)
+    a chunk."""
+    rows = [d for c, d in stages if c == with_chunk]
+    return [1e3 * statistics.median(r[s] for r in rows)
+            for s in range(len(rows[0]))] if rows else []
+
+
+def pipeline_offline(cfg, params):
+    """Phase 12(a): phase 4's workload through Server(sarathi, paged) at
+    pp=1 and then pp=4 (all four stages on the card), captured: the greedy
+    tokens must be identical; each stage's median time and their sum
+    against the pp=1 step are logged."""
+    reqs = main_path_requests(cfg.vocab_size)
+    log("  pp=1:")
+    one = serve_full_width(cfg, params, reqs, keep_logits=True)
+    log(f"  pp={PP}:")
+    four = serve_full_width(cfg, params, main_path_requests(cfg.vocab_size),
+                            keep_logits=True, pp=PP)
+    log(f"  stage devices {four['devices']} (round-robin over "
+        f"{len(set(four['devices']))} card)")
+    compare_runs(one, four, names=("pp=1", f"pp={PP}"))
+    for with_chunk, name, i in ((True, "hybrid", 0), (False, "decode-only",
+                                                      1)):
+        med = stage_medians(four["stages"], with_chunk)
+        log(f"  {name} micro-batch: median stage ms "
+            f"{', '.join(f'{m:.3f}' for m in med)} (sum {sum(med):.3f}); "
+            f"pp={PP} step {four['step_ms'][i]:.3f} ms, pp=1 step "
+            f"{one['step_ms'][i]:.3f} ms")
+
+
+def bimodal_requests(vocab, seed=0):
+    """Phase 12(b)'s workload, drawn as benchmarks/pipeline.py's
+    ``bimodal_workload`` draws it: chat (even) and document (odd)
+    requests alternating, all arriving at 0."""
+    import numpy as np
+    from repro_torch.scheduler import Request
+    rng = np.random.default_rng(seed)
+
+    def draw(lo, hi):
+        return int(rng.integers(lo, hi + 1))
+
+    reqs = []
+    for i in range(PP_N):
+        plen, dlen = ((draw(32, 64), draw(128, 192)) if i % 2 == 0
+                      else (draw(1024, PP_DOC_MAX), draw(16, 32)))
+        reqs.append(Request(prompt=[int(t) for t in
+                                    rng.integers(0, vocab, plen)],
+                            max_new_tokens=dlen, arrival_time=0.0))
+    return reqs
+
+
+def pipeline_bubbles(cfg, params, smi):
+    """Phase 12(b): the bimodal workload through OnlineServer(pp=4),
+    chunked (sarathi_serve, one 256-token chunk a micro-batch) and
+    unchunked (orca, whole prompts): every request its tokens, every logit
+    finite, the launches held; logs the measured bubble share against the
+    A100 simulator's prediction, and whether chunked < unchunked."""
+    from repro_torch.scheduler import POLICIES
+    from repro_torch.serving import format_table
+    from repro_torch.sim import A100
+    from repro_torch.sim.pipeline import simulate_pipeline
+    bubbles = {}
+    for mode, policy in (("chunked", "sarathi_serve"),
+                         ("unchunked", "orca")):
+        pkw = ({"admit_backoff": False, "max_chunks_per_iter": 1}
+               if policy == "sarathi_serve" else None)
+        log(f"  {mode} ({policy}):")
+        srv = online_server(cfg, params, policy=policy, n_slots=PP_SLOTS,
+                            max_len=PP_MAX_LEN, max_prompt_len=PP_DOC_MAX,
+                            max_decodes=PP_MAX_DECODES, policy_kwargs=pkw,
+                            pp=PP)
+        reqs = bimodal_requests(cfg.vocab_size)
+        res, wall, steps, sub_steps, with_chunk, launches = \
+            serve_online_run(srv, cfg, reqs)
+        stage_ms = {name: stage_medians(steps.stages, with_c)
+                    for with_c, name in ((True, "hybrid"),
+                                         (False, "decode-only"))}
+        del steps                 # its wrappers hold the engine
+        release(srv)
+        sched = POLICIES[policy](n_slots=PP_SLOTS,
+                                 max_decodes=PP_MAX_DECODES,
+                                 chunk_size=C_MAIN, **(pkw or {}))
+        for r in bimodal_requests(cfg.vocab_size):
+            sched.submit(r)
+        sim = simulate_pipeline(cfg, A100, sched, pp=PP)
+        predicted = (sim.total_bubble / (PP * sim.makespan)
+                     if sim.makespan > 0 else 0.0)
+        st, s = res.pipeline, res.summary()
+        bubbles[mode] = st.bubble_fraction
+        for line in format_table(s, unit="ms").splitlines():
+            log("  " + line)
+        log(f"  measured bubble fraction {st.bubble_fraction:.4f} "
+            f"(stage busy {', '.join(f'{b:.3f}' for b in st.stage_busy)} "
+            f"s), makespan {st.makespan:.3f} s on the pipeline clock, "
+            f"{st.n_microbatches} micro-batches ({with_chunk} of "
+            f"{sub_steps} sub-steps with a chunk), TBT p99 "
+            f"{1e3 * s.tbt.p99:.3f} ms; host wall time of run() "
+            f"{wall:.3f} s ({smi})")
+        for name, med in stage_ms.items():
+            log(f"  {name} micro-batch: median stage ms "
+                f"{', '.join(f'{m:.3f}' for m in med)}")
+        log(f"  predicted (simulate_pipeline, paper-llama-13b on the A100 "
+            f"profile, the same scheduler): bubble fraction "
+            f"{predicted:.4f}, makespan {sim.makespan:.3f} s, "
+            f"{sim.n_microbatches} micro-batches")
+        log(f"  launches over run(): K3 "
+            f"{launches['paged_chunked_prefill_attention']}, K4 "
+            f"{launches['paged_decode_attention']} (= {cfg.n_layers} layers "
+            f"x {with_chunk} / {sub_steps} sub-steps, summed over {PP} "
+            f"stages); every request got its tokens")
+    verdict = ("chunked < unchunked, as the paper predicts"
+               if bubbles["chunked"] < bubbles["unchunked"] else
+               "chunked >= unchunked, against the paper's prediction")
+    log(f"  verdict (reported, not required): bubble fraction chunked "
+        f"{bubbles['chunked']:.4f}, unchunked {bubbles['unchunked']:.4f}: "
+        f"{verdict}")
 
 
 # --------------------------------------------------------------------------
@@ -1389,6 +1564,13 @@ def main() -> int:
         f"blocks, {HOST_BLOCKS} host slots, swap vs recompute vs "
         f"unpressured")
     swap_full_width(cfg, params, smi)
+
+    log(f"== 12. {cfg.name} bf16, pipeline-parallel serving, pp={PP} on "
+        f"one card: (a) Server(sarathi, paged) pp={PP} vs pp=1")
+    pipeline_offline(cfg, params)
+    log(f"  (b) the §5.3 bubble measurement: OnlineServer(pp={PP}), "
+        f"{PP_N} bimodal requests at 0, chunked vs unchunked")
+    pipeline_bubbles(cfg, params, smi)
     del params
     log(smi)
 

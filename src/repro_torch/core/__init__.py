@@ -7,11 +7,12 @@ from repro_torch.core.chunk_size import (MXU_TILE, optimal_pd_ratio,
                                          select_chunk_size)
 from repro_torch.core.engine import (ChunkWork, DecodeWork, Engine,
                                      IterationPlan)
+from repro_torch.core.pipeline_engine import PipelineEngine
 from repro_torch.core.sampling import SamplingParams, sample
 
 __all__ = [
     "Chunk", "plan_chunks", "num_chunks", "kv_reload_bytes_factor",
     "piggyback_coverage", "MXU_TILE", "quantized_chunk_size",
-    "optimal_pd_ratio", "select_chunk_size", "Engine", "IterationPlan",
+    "optimal_pd_ratio", "select_chunk_size", "Engine", "PipelineEngine", "IterationPlan",
     "ChunkWork", "DecodeWork", "SamplingParams", "sample",
 ]

@@ -103,6 +103,38 @@ def _slot_runs(slots: Sequence[int]):
         i += n
 
 
+def _swap_out(cache, arenas: Sequence[torch.Tensor], device: torch.device,
+              pairs: Sequence[tuple]) -> None:
+    """Copy the pool blocks of ``(device_block, host_slot)`` pairs into
+    their host slots, on every pool leaf of ``cache`` (``arenas`` holds
+    one arena per leaf, in order); returns once the copies have
+    finished."""
+    src = torch.tensor([b for b, _ in pairs], dtype=torch.long,
+                       device=device)
+    runs = list(_slot_runs([s for _, s in pairs]))
+    for leaf, arena in zip(_pool_leaves(cache), arenas):
+        rows = leaf.index_select(0, src)
+        for i, s, n in runs:
+            arena[s:s + n].copy_(rows[i:i + n], non_blocking=True)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def _swap_in(cache, arenas: Sequence[torch.Tensor], device: torch.device,
+             pairs: Sequence[tuple]) -> None:
+    """Copy the host slots of ``(host_slot, device_block)`` pairs back
+    into their pool blocks, in place, on every pool leaf of ``cache``."""
+    dst = torch.tensor([b for _, b in pairs], dtype=torch.long,
+                       device=device)
+    runs = list(_slot_runs([s for s, _ in pairs]))
+    for leaf, arena in zip(_pool_leaves(cache), arenas):
+        rows = torch.empty((len(pairs), *leaf.shape[1:]),
+                           dtype=leaf.dtype, device=device)
+        for i, s, n in runs:
+            rows[i:i + n].copy_(arena[s:s + n], non_blocking=True)
+        leaf.index_copy_(0, dst, rows)
+
+
 @dataclass
 class ChunkWork:
     req_id: int
@@ -211,9 +243,9 @@ class Engine:
                  tp: int = 1, devices: Optional[Sequence] = None,
                  sp: bool = False, device=None, graphs: bool = True):
         if int(tp) != 1 or devices:
-            raise _unported("tp > 1 / devices", "pp/tp/sp")
+            raise _unported("tp > 1 / devices", "tp/sp")
         if sp:
-            raise _unported("sp", "pp/tp/sp")
+            raise _unported("sp", "tp/sp")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model: Model = build_model(cfg)
@@ -273,6 +305,15 @@ class Engine:
     def paged(self) -> bool:
         return self.block_manager is not None
 
+    def activation_bytes_per_iteration(self) -> int:
+        """Residual-stream footprint of one packed hybrid step: the two
+        ``[C + D, d_model]`` norm+residual boundary activations per layer
+        (the JAX engine's measured counterpart of
+        ``sim.cost_model.sp_activation_bytes``, at ``tp=1`` without
+        sequence parallelism, the only case the port runs)."""
+        return (2 * self.cfg.n_layers * (self.C + self.D)
+                * self.cfg.d_model * self.dtype.itemsize)
+
     # ----------------------------------------------------------- requests
     def add_request(self, req_id: int, memory=None) -> int:
         """Assign a cache slot and wipe its rows."""
@@ -282,14 +323,23 @@ class Engine:
             raise RuntimeError("no free slots")
         slot = self._free.pop(0)
         self._slot_of[req_id] = slot
-        _reset_slot(self.cache, slot)
+        self._wipe_slot(slot)
         return slot
+
+    def _wipe_slot(self, slot: int):
+        _reset_slot(self.cache, slot)
 
     def release(self, req_id: int):
         slot = self._slot_of.pop(req_id)
         self._free.append(slot)
         if self.block_manager is not None:
             self.block_manager.free(req_id)   # idempotent vs scheduler free
+
+    def extract_request(self, req_id: int):
+        raise _unported("extract_request", "disagg")
+
+    def install_request(self, req_id: int, handoff):
+        raise _unported("install_request", "disagg")
 
     # --------------------------------------------------------------- step
     def execute(self, plan: IterationPlan) -> Dict[int, int]:
@@ -345,17 +395,8 @@ class Engine:
         host slot on every layer.  Returns once the copies have finished:
         the manager may hand those blocks to another request in the same
         plan."""
-        if not pairs:
-            return
-        src = torch.tensor([b for b, _ in pairs], dtype=torch.long,
-                           device=self.device)
-        runs = list(_slot_runs([s for _, s in pairs]))
-        for leaf, arena in zip(_pool_leaves(self.cache), self._host_pool):
-            rows = leaf.index_select(0, src)
-            for i, s, n in runs:
-                arena[s:s + n].copy_(rows[i:i + n], non_blocking=True)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        if pairs:
+            _swap_out(self.cache, self._host_pool, self.device, pairs)
 
     def swap_in_blocks(self, pairs: Sequence[tuple]):
         """Host->device move for :meth:`BlockManager.swap_in` pairs
@@ -364,17 +405,8 @@ class Engine:
         are bit-identical to never having been preempted.  The pool is
         written in place on the current stream (the JAX package returns a
         new cache tree instead); the captured graphs hold its addresses."""
-        if not pairs:
-            return
-        dst = torch.tensor([b for _, b in pairs], dtype=torch.long,
-                           device=self.device)
-        runs = list(_slot_runs([s for s, _ in pairs]))
-        for leaf, arena in zip(_pool_leaves(self.cache), self._host_pool):
-            rows = torch.empty((len(pairs), *leaf.shape[1:]),
-                               dtype=leaf.dtype, device=self.device)
-            for i, s, n in runs:
-                rows[i:i + n].copy_(arena[s:s + n], non_blocking=True)
-            leaf.index_copy_(0, dst, rows)
+        if pairs:
+            _swap_in(self.cache, self._host_pool, self.device, pairs)
 
     # ------------------------------------------------------ packed steps
     def _pack(self, chunk: Optional[ChunkWork],
@@ -512,14 +544,21 @@ class Engine:
         with torch.inference_mode():
             shape = self._pack(chunk, decodes, pad_chunk)
             chunk_logits, decode_logits = self._run(shape)
-            if self.on_logits is not None:
-                self.on_logits(chunk_logits, decode_logits)
-            # sampling stays outside the graph: the generator advances
-            # exactly as in the eager step, and capture consumes none of it
-            chunk_tok = (sample(chunk_logits[0], self.generator,
-                                self.sampling)
-                         if chunk_logits is not None else None)
-            dec_tok = (sample(decode_logits, self.generator, self.sampling)
-                       if decode_logits is not None else None)
+            return self._sample(chunk, decodes, chunk_logits,
+                                decode_logits)
+
+    def _sample(self, chunk: Optional[ChunkWork],
+                decodes: Sequence[DecodeWork], chunk_logits,
+                decode_logits) -> Dict[int, int]:
+        """Show the step's logits to ``on_logits``, sample its tokens and
+        count the sub-step.  Sampling stays outside the graphs: the
+        generator advances exactly as in the eager step, and capture
+        consumes none of it."""
+        if self.on_logits is not None:
+            self.on_logits(chunk_logits, decode_logits)
+        chunk_tok = (sample(chunk_logits[0], self.generator, self.sampling)
+                     if chunk_logits is not None else None)
+        dec_tok = (sample(decode_logits, self.generator, self.sampling)
+                   if decode_logits is not None else None)
         self.iterations += 1
         return self._collect(chunk, decodes, chunk_tok, dec_tok)

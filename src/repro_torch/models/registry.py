@@ -34,6 +34,11 @@ class Model:
     def forward_packed(self, params, pk: PackedBatch, cache):
         return stack.forward_packed(self.cfg, params, pk, cache)
 
+    def forward_packed_stage(self, params, pk: PackedBatch, cache, x, *,
+                             first: bool, last: bool):
+        return stack.forward_packed_stage(self.cfg, params, pk, cache, x,
+                                          first=first, last=last)
+
     @property
     def needs_memory(self) -> bool:
         return self.cfg.family in ("vlm", "encdec")

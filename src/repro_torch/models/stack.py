@@ -4,14 +4,16 @@ PyTorch counterpart of ``repro.models.stack`` for the ``dense`` layer kind
 with the glu or mlp FFN: :class:`Transformer` is an ``nn.Module`` whose
 parameters keep the JAX leaf names (``embed``, ``final_norm``,
 ``unembed``; per layer ``ln1``, ``mixer.*``, ``ln2``, ``ffn.*``).
-:func:`forward_packed` runs one SARATHI hybrid step and
-:func:`forward_batched` a ``[B, L]`` batch (full or chunked prefill,
+:func:`forward_packed` runs one SARATHI hybrid step (the one-stage case of
+:func:`forward_packed_stage`, which runs one pipeline stage's share of it)
+and :func:`forward_batched` a ``[B, L]`` batch (full or chunked prefill,
 batched decode, or the no-cache forward), looping over the layers in
 Python where JAX scans them.  The cache is a list with one dict
 per layer, updated in place.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -35,6 +37,17 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
             f"needs mixers the port does not have yet (ROADMAP Queue 1, "
             f"the other mixers)")
     return ["dense"] * cfg.n_layers
+
+
+def group_split(cfg: ModelConfig) -> Tuple[List[str], int, List[str]]:
+    """-> (group_kinds, n_groups, tail_kinds), as in the JAX package: the
+    smallest repeating block pattern, how many times it repeats, and the
+    layers left over.  The port has only the dense kind, whose period is
+    1, so every layer is a group and the tail is empty."""
+    kinds = layer_kinds(cfg)
+    period = 1
+    n_groups = cfg.n_layers // period
+    return kinds[:period], n_groups, kinds[n_groups * period:]
 
 
 def _ffn_spec(cfg: ModelConfig) -> str:
@@ -88,7 +101,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device):
         super().__init__()
-        layer_kinds(cfg)
+        self.kinds = tuple(layer_kinds(cfg))
         self.cfg = cfg
         self.embed = cm.param(cm.embed_init(
             generator, (cfg.vocab_size, cfg.d_model), dtype, device))
@@ -100,6 +113,20 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             [Layer(cfg, generator, dtype, device)
              for _ in range(cfg.n_layers)])
+
+
+@dataclass(frozen=True)
+class StageParams:
+    """One pipeline stage's share of a :class:`Transformer`, as
+    :func:`repro_torch.launch.pipeline.stage_params` cuts it: the stage's
+    layer modules and kinds, ``embed`` on the first stage, ``final_norm``
+    and ``unembed`` (``embed`` again with tied embeddings) on the last.
+    It holds the model's own modules and tensors, never copies."""
+    kinds: Tuple[str, ...]
+    layers: Tuple[nn.Module, ...]
+    embed: Optional[torch.Tensor] = None
+    final_norm: Optional[torch.Tensor] = None
+    unembed: Optional[torch.Tensor] = None
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -183,13 +210,36 @@ def _unembed(cfg, params, x):
 def forward_packed(cfg: ModelConfig, params: Transformer, pk: PackedBatch,
                    cache: List[Dict]):
     """SARATHI hybrid step.  Returns (chunk_logits [1,V] | None,
-    decode_logits [D,V] | None, cache (updated in place), aux)."""
-    x = params.embed[pk.token_ids().long()]
-    kinds = layer_kinds(cfg)
+    decode_logits [D,V] | None, cache (updated in place), aux).
+
+    The one-stage pipeline: it runs :func:`forward_packed_stage` with
+    ``first=last=True``, so the packed forward has one copy and the
+    composed stages cannot drift from it."""
+    (chunk_logits, decode_logits), cache, aux = forward_packed_stage(
+        cfg, params, pk, cache, None, first=True, last=True)
+    return chunk_logits, decode_logits, cache, aux
+
+
+def forward_packed_stage(cfg: ModelConfig, params, pk: PackedBatch,
+                         cache: List[Dict], x, *, first: bool, last: bool):
+    """One pipeline stage of :func:`forward_packed`.
+
+    ``params`` is a :class:`Transformer` or a :class:`StageParams` and
+    ``cache`` the matching per-layer cache dicts (updated in place).  The
+    first stage embeds ``pk``'s tokens and ignores ``x``; the others take
+    the ``[C+D, d]`` residual stream in ``x``.  A stage that is not last
+    returns ``(x, cache, aux)``; the last returns ``((chunk_logits,
+    decode_logits), cache, aux)``.  Composing the stages in order runs
+    every layer exactly as the monolithic forward does, so their results
+    are equal bit for bit."""
+    if first:
+        x = params.embed[pk.token_ids().long()]
     aux = 0.0
-    for kind, p, c in zip(kinds, params.layers, cache):
+    for kind, p, c in zip(params.kinds, params.layers, cache):
         x, _, a = apply_layer_packed(cfg, kind, p, x, c, pk)
         aux = aux + a
+    if not last:
+        return x, cache, aux
     x = cm.rms_norm(x, params.final_norm, cfg.norm_eps)
     C, D = pk.num_chunk, pk.num_decode
     if C:
@@ -199,7 +249,7 @@ def forward_packed(cfg: ModelConfig, params: Transformer, pk: PackedBatch,
     else:
         chunk_logits = None
     decode_logits = _unembed(cfg, params, x[C:]) if D else None
-    return chunk_logits, decode_logits, cache, aux
+    return (chunk_logits, decode_logits), cache, aux
 
 
 _LOGITS_MODES = ("all", "last", "hidden", "none")

@@ -2,7 +2,8 @@ from repro_torch.serving.server import (IterationStats, ServeResult, Server,
                                         build_engine_and_scheduler)
 from repro_torch.serving.online import (CostModelExecutor, EngineExecutor,
                                         IterationRecord, OnlineResult,
-                                        OnlineServer, serve_online)
+                                        OnlineServer, serve_online,
+                                        serve_online_pipelined)
 from repro_torch.serving.metrics import (PipelineStats, RequestTrace,
                                          ServingSummary, Stat, format_table,
                                          percentile, summarize)
@@ -15,6 +16,7 @@ from repro_torch.serving.workload import (bursty_arrivals,
 __all__ = [
     "Server", "ServeResult", "IterationStats", "build_engine_and_scheduler",
     "OnlineServer", "OnlineResult", "IterationRecord", "serve_online",
+    "serve_online_pipelined",
     "EngineExecutor", "CostModelExecutor",
     "PipelineStats",
     "RequestTrace", "ServingSummary", "Stat", "percentile", "summarize",

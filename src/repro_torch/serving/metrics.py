@@ -84,10 +84,10 @@ class RequestTrace:
 class PipelineStats:
     """Per-stage occupancy of a pipeline-parallel serving run.
 
-    The JAX package's pipelined engine executes micro-batches
-    stage-by-stage and *measures* each stage's service time
-    (``PipelineEngine.execute_timed``; not ported yet); this
-    class replays those measured durations on a virtual pipeline clock
+    The pipelined engine executes micro-batches stage-by-stage and
+    *measures* each stage's service time
+    (:meth:`repro_torch.core.PipelineEngine.execute_timed`); this class
+    replays those measured durations on a virtual pipeline clock
     with exactly the recurrence ``repro_torch.sim.pipeline`` uses — a stage
     starts a micro-batch when both the stage is free and the previous
     stage has finished it — so measured bubble fractions are directly

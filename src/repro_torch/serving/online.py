@@ -19,9 +19,12 @@ The iteration duration comes from a pluggable **executor**:
 
 Both share one loop, so the budget scheduler's behaviour is identical in
 measurement and simulation.  As in the JAX package the clock leaves out the
-scheduler's planning time between iterations.  The pipelined loop
-(``serve_online_pipelined``) and phase-disaggregated serving are not ported
-yet (ROADMAP Queue 1, "pp/tp/sp" and "disagg").
+scheduler's planning time between iterations.  A
+:class:`~repro_torch.core.PipelineEngine` is served by
+:func:`serve_online_pipelined` instead: ``pp`` micro-batches in flight on a
+virtual pipeline clock fed with the measured stage times.
+Phase-disaggregated serving is not ported yet (ROADMAP Queue 1,
+"disagg").
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import Engine, IterationPlan, _unported
+from repro_torch.core.pipeline_engine import PipelineEngine
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.scheduler import Request, Scheduler
 from repro_torch.serving.metrics import (PipelineStats, RequestTrace,
@@ -334,6 +338,180 @@ def serve_online(scheduler: Scheduler, executor,
 
 
 # --------------------------------------------------------------------------
+# the pipelined event loop (pipeline-parallel engine)
+# --------------------------------------------------------------------------
+def _sync_stages(engine: PipelineEngine):
+    """Wait for every CUDA stage device, so that a time read next holds
+    the finished copies."""
+    for dev in engine.devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def serve_online_pipelined(scheduler: Scheduler, engine: PipelineEngine,
+                           requests: Sequence[Request], *,
+                           warmup: bool = True,
+                           max_iterations: int = 1_000_000) -> OnlineResult:
+    """Arrival-driven serving over a :class:`PipelineEngine` with
+    ``engine.pp`` micro-batches in flight.
+
+    Iteration-level scheduling with the autoregressive pipeline dependency
+    of ``repro_torch.sim.pipeline``: a request whose micro-batch is still
+    draining the stages is LOCKED — hidden from the scheduler — so each of
+    the ``pp`` in-flight micro-batches carries a disjoint request set, and
+    the scheduler keeps composing fresh decode-maximal micro-batches from
+    the unlocked requests instead of stalling the pipeline.  Time is the
+    virtual pipeline clock of :class:`PipelineStats`, fed with the
+    *measured* per-stage durations of every micro-batch; a token completes
+    (TTFT/TBT event) when its micro-batch drains the LAST stage, and the
+    per-stage busy/idle ledger is the engine-side counterpart of the
+    simulator's bubble accounting.
+    """
+    if warmup:
+        engine.warmup()                     # capture the stages off the clock
+    stats = PipelineStats(engine.pp, tp=getattr(engine, "tp", 1))
+    pending = sorted(requests, key=lambda r: (r.arrival_time, r.req_id))
+    traces = {r.req_id: RequestTrace(r.req_id, r.arrival_time)
+              for r in requests}
+    result = OnlineResult(traces=traces, outputs={}, pipeline=stats,
+                          tp=stats.tp)
+    locked: Dict[int, float] = {}           # req_id -> drain (unlock) time
+    n_rejected = 0
+    passes_now = getattr(scheduler, "supports_time", False)
+    bm = getattr(scheduler, "block_manager", None)
+    drain_clock = 0.0                       # time of the newest drain event
+
+    def admit(req: Request):
+        engine.add_request(req.req_id, memory=req.memory)
+
+    def release(req: Request):
+        engine.release(req.req_id)
+        tr = traces[req.req_id]
+        tr.finish = drain_clock
+        tr.n_preemptions = req.n_preemptions
+        tr.recompute_tokens = req.recompute_tokens
+        tr.cached_tokens = req.cached_tokens
+        tr.n_swap_outs = req.n_swap_outs
+        tr.n_swap_ins = req.n_swap_ins
+        tr.swapped_tokens = req.swapped_tokens
+        result.outputs[req.req_id] = list(req.output)
+
+    def preempt(req: Request):
+        engine.release(req.req_id)
+        result.n_preemptions += 1
+        tr = traces[req.req_id]
+        tr.n_preemptions += 1
+        tr.recompute_tokens += req.context_len
+
+    # host-swap hooks: per-stage arena moves, measured on the wall clock
+    # (the finished copies) and charged as head-of-pipeline delay (the
+    # PCIe stream must finish before the resumed victim's next micro-batch
+    # is injected)
+    swap_charge = [0.0]
+
+    def swap_out(req: Request, pairs):
+        t0 = time.perf_counter()
+        engine.swap_out_blocks(pairs)
+        engine.release(req.req_id)
+        _sync_stages(engine)
+        dt = time.perf_counter() - t0
+        swap_charge[0] += dt
+        result.n_swap_outs += 1
+        result.n_preemptions += 1
+        result.kv_swap_time += dt
+        tr = traces[req.req_id]
+        tr.n_preemptions += 1
+        tr.n_swap_outs += 1
+        tr.swapped_tokens += req.context_len
+
+    def swap_in(req: Request, pairs):
+        t0 = time.perf_counter()
+        engine.add_request(req.req_id, memory=req.memory)
+        engine.swap_in_blocks(pairs)
+        _sync_stages(engine)
+        dt = time.perf_counter() - t0
+        swap_charge[0] += dt
+        result.n_swap_ins += 1
+        result.kv_swap_time += dt
+        traces[req.req_id].n_swap_ins += 1
+
+    for _ in range(max_iterations):
+        now = stats.stage_free[0]           # next injection opportunity
+        while pending and pending[0].arrival_time <= now:
+            scheduler.submit(pending.pop(0))
+        if not pending and not scheduler.has_work:
+            break
+        for rid in [r for r, t in locked.items() if t <= now]:
+            del locked[rid]
+        # in-flight requests are invisible to the scheduler until drained;
+        # they still occupy engine slots, so the visible slot budget
+        # shrinks with them (or admission would overflow the engine)
+        hidden = [r for r in scheduler.running if r.req_id in locked]
+        scheduler.running = [r for r in scheduler.running
+                             if r.req_id not in locked]
+        scheduler.n_slots -= len(hidden)
+        kwargs = {"now": now} if passes_now else {}
+        if getattr(scheduler, "supports_preempt", False):
+            kwargs["preempt_hook"] = preempt
+        if getattr(scheduler, "supports_swap", False):
+            kwargs["swap_out_hook"] = swap_out
+            kwargs["swap_in_hook"] = swap_in
+        try:
+            plan = scheduler.next_plan(admit_hook=admit, **kwargs)
+        finally:
+            scheduler.n_slots += len(hidden)
+            scheduler.running.extend(hidden)
+        if swap_charge[0]:
+            stats.advance_head(now + swap_charge[0])
+            now = stats.stage_free[0]
+            swap_charge[0] = 0.0
+        for req in getattr(scheduler, "rejected", [])[n_rejected:]:
+            traces[req.req_id].finish = now
+            result.outputs[req.req_id] = []
+            n_rejected += 1
+        if plan is None:
+            events = [t for t in locked.values()]
+            if pending:
+                events.append(pending[0].arrival_time)
+            if not events:
+                if scheduler.has_work:      # pragma: no cover - safety net
+                    raise RuntimeError("scheduler stalled with work queued")
+                break
+            stats.advance_head(min(events))
+            continue
+        tokens, durs = engine.execute_timed(plan)
+        drain = stats.inject(now, durs)
+        drain_clock = drain
+        ids = [c.req_id for c in plan.chunks] + \
+            [d.req_id for d in plan.decodes]
+        # autoregressive dependency: only token-producing work (decodes,
+        # last chunks) waits for the drain; a NON-last prefill chunk's
+        # successor chunk may enter the very next micro-batch — it meets
+        # its predecessor's KV at each stage strictly after the
+        # predecessor wrote it (in-order pipeline), so consecutive chunks
+        # of one prompt stream back-to-back (§5.3)
+        for c in plan.chunks:
+            if c.is_last:
+                locked[c.req_id] = drain
+        for d in plan.decodes:
+            locked[d.req_id] = drain
+        for rid in ids:
+            traces[rid].mark_scheduled(now)
+        for rid in tokens:
+            traces[rid].token_times.append(drain)
+        result.iterations.append(IterationRecord(
+            now, drain - now, plan.n_prefill_tokens, plan.n_decode_tokens,
+            pool_blocks_used=bm.n_used if bm is not None else 0,
+            pool_blocks_total=bm.n_usable if bm is not None else 0,
+            n_resident=len(scheduler.running)
+            + sum(1 for r in scheduler.waiting
+                  if getattr(r, "swapped", False))))
+        scheduler.on_tokens(tokens, release_hook=release)
+    result.makespan = stats.makespan
+    return result
+
+
+# --------------------------------------------------------------------------
 # convenience wrapper: engine + budget scheduler
 # --------------------------------------------------------------------------
 class OnlineServer:
@@ -343,9 +521,12 @@ class OnlineServer:
     card; ``host_blocks`` / ``preempt_mode`` / ``swap_hw`` give the paged
     pool its host swap tier (see :func:`build_engine_and_scheduler`).
 
-    ``pp``, ``tp``, ``sp``, ``devices`` and ``force_pipeline`` keep the
-    JAX signature but raise ``NotImplementedError`` unless left at their
-    defaults (ROADMAP Queue 1, "pp/tp/sp").
+    ``pp > 1`` (or ``force_pipeline``) serves on a :class:`PipelineEngine`
+    through the pipelined event loop (:func:`serve_online_pipelined`): up
+    to ``pp`` micro-batches in flight, per-stage bubble accounting on
+    ``result.pipeline``.  ``tp`` and ``sp`` keep the JAX signature but
+    raise ``NotImplementedError`` unless left at their defaults (ROADMAP
+    Queue 1, "tp/sp").
     """
 
     def __init__(self, cfg: ModelConfig, params, *,
@@ -378,6 +559,10 @@ class OnlineServer:
 
     def run(self, requests: Sequence[Request], *, warmup: bool = True,
             max_iterations: int = 1_000_000) -> OnlineResult:
+        if isinstance(self.engine, PipelineEngine):
+            return serve_online_pipelined(self.scheduler, self.engine,
+                                          requests, warmup=warmup,
+                                          max_iterations=max_iterations)
         if warmup:
             self.executor.warmup()          # build and capture off the clock
         return serve_online(self.scheduler, self.executor, requests,

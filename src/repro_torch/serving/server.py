@@ -3,10 +3,10 @@
 Drives a workload of :class:`repro_torch.scheduler.Request`s to
 completion and records each iteration's composition (prefill / decode
 token counts), as ``repro.serving.server`` does, with the JAX loop's
-preemption and swap hooks and its handling of rejected prompts.  The
-arguments of the JAX signature that this port has not got yet (``pp``,
-``force_pipeline``; the engine refuses ``tp``, ``devices`` and ``sp``)
-raise ``NotImplementedError`` naming their ROADMAP item.
+preemption and swap hooks and its handling of rejected prompts.
+``pp > 1`` (or ``force_pipeline``) serves on a
+:class:`~repro_torch.core.PipelineEngine`; the engines refuse ``tp > 1``
+and ``sp``, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,26 +18,13 @@ import torch
 from repro_torch.cache import PrefixCache
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import Engine
+from repro_torch.core.pipeline_engine import PipelineEngine
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.models import stack
 from repro_torch.scheduler import (BUDGETED_POLICIES, CHUNKED_POLICIES,
                                    POLICIES, PREFIX_POLICIES, SWAP_POLICIES,
                                    Request)
 from repro_torch.sim import A100
-
-# arguments of the JAX signature that only the server takes: default and
-# the ROADMAP Queue 1 item that ports each (the engine refuses its own)
-_UNPORTED = {"pp": (1, "pp/tp/sp"), "force_pipeline": (False, "pp/tp/sp")}
-
-
-def _refuse_unported(**kw) -> None:
-    for name, value in kw.items():
-        default, item = _UNPORTED[name]
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP Queue 1: "
-                f"{item})")
-
 
 def build_engine_and_scheduler(cfg: ModelConfig, params, *, policy: str,
                                chunk_size: int, n_slots: int, max_len: int,
@@ -72,19 +59,31 @@ def build_engine_and_scheduler(cfg: ModelConfig, params, *, policy: str,
     resume), ``"swap"`` (move its blocks to the host arena and back before
     its next chunk) or ``"hybrid"`` (per victim, the cheaper of the two
     under the cost model on ``swap_hw``, default A100).  Swap needs paged,
-    a swap-aware policy and pure attention layers."""
+    a swap-aware policy and pure attention layers.
+
+    ``pp > 1`` builds a :class:`PipelineEngine`: the layer stack cut into
+    ``pp`` stages on ``devices`` (default: the visible CUDA cards,
+    round-robin), with the same execute contract and tokens, and per-stage
+    service times for the pipelined serving loop.  ``force_pipeline``
+    builds one at ``pp=1`` too (the one-stage pipeline, the no-pipeline
+    reference of a bubble measurement).  ``max_decodes`` caps the decodes
+    the scheduler piggybacks per iteration (default ``n_slots - 1``); with
+    a pipeline about ``n_slots / pp`` spreads them over the micro-batches
+    in flight.  The engine's decode lanes stay ``n_slots - 1``."""
     if policy not in POLICIES:
         raise KeyError(f"unknown policy {policy!r}; have {sorted(POLICIES)}")
-    _refuse_unported(pp=pp, force_pipeline=force_pipeline)
     engine_chunk = chunk_size if policy in CHUNKED_POLICIES else \
         (max_prompt_len or max_len)
-    engine = Engine(cfg, params, n_slots=n_slots, max_len=max_len,
-                    chunk_size=engine_chunk,
-                    decode_slots=max(n_slots - 1, 1), dtype=dtype,
-                    sampling=sampling, seed=seed, paged=paged,
-                    block_size=block_size, n_blocks=n_blocks,
-                    watermark=watermark, host_blocks=host_blocks, tp=tp,
-                    devices=devices, sp=sp, device=device)
+    ekw = dict(n_slots=n_slots, max_len=max_len, chunk_size=engine_chunk,
+               decode_slots=max(n_slots - 1, 1), dtype=dtype,
+               sampling=sampling, seed=seed, paged=paged,
+               block_size=block_size, n_blocks=n_blocks,
+               watermark=watermark, host_blocks=host_blocks, tp=tp,
+               devices=devices, sp=sp, device=device)
+    if pp > 1 or force_pipeline:
+        engine = PipelineEngine(cfg, params, pp=pp, **ekw)
+    else:
+        engine = Engine(cfg, params, **ekw)
     kw = dict(n_slots=n_slots,
               max_decodes=(max_decodes if max_decodes is not None
                            else max(n_slots - 1, 1)),

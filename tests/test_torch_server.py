@@ -187,9 +187,9 @@ def test_warmup_consumes_no_state():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tp=2), dict(pp=2), dict(sp=True), dict(devices=["cpu"]),
+    dict(tp=2), dict(pp=2, tp=2), dict(sp=True), dict(devices=["cpu"]),
     dict(policy="sarathi_serve", tp=2, host_blocks=8, preempt_mode="swap"),
-    dict(policy="sarathi_serve", pp=2, preempt_mode="hybrid"),
+    dict(policy="sarathi_serve", pp=2, sp=True, preempt_mode="hybrid"),
 ])
 def test_unported_arguments_raise(kw):
     cfg = get_config("tinyllama-1.1b").reduced()

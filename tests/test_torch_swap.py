@@ -220,18 +220,19 @@ def test_preempt_mode_validation_matches_jax(case):
 
 @pytest.mark.parametrize("server", ["Server", "OnlineServer"])
 def test_pipeline_parallel_refused(server):
-    """``pp``, ``tp``, ``sp``, ``devices`` (and the online server's
-    ``force_pipeline``) keep the JAX signature and raise, naming their
-    ROADMAP item."""
+    """``tp``, ``sp`` and ``devices`` keep the JAX signature and raise,
+    naming their ROADMAP item, also beside ``pp`` (and the online server's
+    ``force_pipeline``), which are served (tests/test_torch_pipeline.py)."""
     cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
                               **SHAPE)
     from repro_torch.models import init_params
     params = init_params(cfg, seed=0, device="cpu")
     cls = getattr(serving, server)
-    refused = [dict(pp=2), dict(tp=2), dict(sp=True), dict(devices=["cpu"])]
+    refused = [dict(pp=2, tp=2), dict(tp=2), dict(sp=True),
+               dict(devices=["cpu"])]
     if server == "OnlineServer":              # only it takes the argument
-        refused.append(dict(force_pipeline=True))
+        refused.append(dict(force_pipeline=True, sp=True))
     for kw in refused:
-        with pytest.raises(NotImplementedError, match="pp/tp/sp"):
+        with pytest.raises(NotImplementedError, match="tp/sp"):
             cls(cfg, params, policy="sarathi_serve", chunk_size=8,
                 n_slots=2, max_len=64, device="cpu", **kw)
